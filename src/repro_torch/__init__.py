@@ -1,0 +1,36 @@
+"""repro_torch — the PyTorch/CUDA port of :mod:`repro`, one slice at a time.
+
+The JAX package ``repro`` is the reference; this package mirrors its layout
+(``repro_torch/compress/codec.py`` <-> ``repro/compress/codec.py``, ...) and
+imports neither ``jax`` nor ``repro``.  The first slice is the paper's
+Sec.-VII closed loop: ``Scenario.optimize()`` (the scalar NumPy GIA/CGP
+solver, copied) then ``Scenario.run(plan)`` (GenQSGD, Algorithm 1, in
+PyTorch), with the QSGD norm, quantize and dequant-apply as hand-written
+CUDA kernels (:mod:`repro_torch.kernels.qsgd`).
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; with no card they raise instead of falling back.  What
+the slice does not carry yet raises :class:`NotImplementedError` naming its
+item in ``ROADMAP.md``.
+"""
+from __future__ import annotations
+
+__all__ = ["not_ported", "resolve_device"]
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error for a feature of ``repro`` this package does not carry yet."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet "
+        f"(ROADMAP.md, Queue 1, item {item})")
+
+
+def resolve_device(device):
+    """``device`` as a :class:`torch.device`; a CUDA device with no card
+    raises rather than quietly running on the CPU."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} needs a CUDA card and none is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,268 @@
+"""Scenario: the declarative front door of the optimization framework.
+
+One object bundles everything the paper's closed loop needs — the edge
+system (cost model), the ML-problem constants, the budgets ``(T_max,
+C_max)``, the step-size rule, and the algorithm family — and exposes the
+loop as two calls:
+
+    plan   = scenario.optimize()          # GIA/CGP -> frozen Plan
+    report = scenario.run(plan, task)     # train -> RunReport vs predictions
+
+This slice carries family ``genqsgd`` with full participation and no
+faults, the scalar NumPy solver and the reference runtime; the rest of the
+JAX package's Scenario raises :class:`NotImplementedError` naming its item
+in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from .. import not_ported, obs as _obs
+from ..core.cost import EdgeSystem, energy_cost, time_cost
+from ..core.convergence import MLProblemConstants
+from ..core.genqsgd import GenQSGD, flatten_like
+from ..core.step_rules import (ConstantRule, DiminishingRule, ExponentialRule,
+                               StepRule)
+from ..families import AlgorithmFamily, resolve
+from ..opt.gia import solve_param_opt
+from ..opt.problems import Objective, ParamOptProblem, VarMap
+from .plan import Plan, RunReport
+from .tasks import MNISTTask
+
+__all__ = ["Scenario"]
+
+_RULE_FOR = {Objective.CONSTANT: ConstantRule,
+             Objective.EXPONENTIAL: ExponentialRule,
+             Objective.DIMINISHING: DiminishingRule}
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """A federated-edge-learning scenario: system + problem + budgets +
+    algorithm.  Frozen; derive variants with ``dataclasses.replace``."""
+
+    system: EdgeSystem
+    consts: MLProblemConstants
+    T_max: float                          # time budget (s), constraint (20)
+    C_max: float                          # convergence-error budget, (21)
+    family: Union[str, AlgorithmFamily] = "genqsgd"  # repro.families key
+    step: Optional[StepRule] = None       # None -> jointly optimized (m=J)
+    samples_per_worker: float = 6000.0    # I_n (FedAvg's epoch tie)
+    sampling: object = "full"             # repro.sampling key or model
+    faults: object = "none"               # repro.faults key or model
+
+    def __post_init__(self):
+        fam = resolve(self.family)        # unknown names fail here, loudly
+        if fam.key != "genqsgd":
+            raise not_ported(f"algorithm family {fam.key!r}", 4)
+        if getattr(self.sampling, "key", self.sampling) != "full":
+            raise not_ported(f"sampling model {self.sampling!r}", 6)
+        if getattr(self.faults, "key", self.faults) != "none":
+            raise not_ported(f"fault model {self.faults!r}", 6)
+        if self.system.q_dim is not None:
+            raise not_ported("per-bucket-norm quantization (q_dim)", 2)
+        self.sampling_obj.validate(self.system.N)
+        self.faults_obj.validate(self.system.N)
+        if self.consts.N != self.system.N:
+            raise ValueError(
+                f"consts describe N={self.consts.N} workers but the system "
+                f"has N={self.system.N}")
+
+    # ------------------------------------------------------------------
+    @property
+    def family_obj(self) -> AlgorithmFamily:
+        """The resolved :class:`~repro.families.AlgorithmFamily`."""
+        return resolve(self.family)
+
+    @property
+    def sampling_obj(self):
+        """The resolved :class:`~repro.sampling.SamplingModel`."""
+        from ..sampling import resolve as resolve_sampling
+        return resolve_sampling(self.sampling)
+
+    @property
+    def faults_obj(self):
+        """The resolved :class:`~repro.faults.FaultModel`."""
+        from ..faults import resolve as resolve_faults
+        return resolve_faults(self.faults)
+
+    @property
+    def family_key(self) -> str:
+        return self.family_obj.key
+
+    @functools.cached_property
+    def _priced_system(self) -> EdgeSystem:
+        """The system whose M_s / q_s price the *family's* codec — the one
+        guarantee of the closed loop: the optimizer and the runtime move
+        the same bytes through the same quantizer.  A rotated family on a
+        bucketed system drops ``q_dim``: rotation isotropizes the whole
+        message, so per-bucket norms are redundant (and the codec rejects
+        the combination).  A non-neutral fault model additionally stamps
+        its availability / worst-case margins, so the GP plans for the
+        fleet the runtime will actually face — neutral fault models leave
+        the system object untouched (bitwise)."""
+        fam = self.family_obj
+        sys = self.system
+        fm = self.faults_obj
+        if not fm.is_neutral(sys.N):
+            an = fm.availability(sys.N) if sys.an is None else sys.an
+            fmg = max(float(sys.freq_margin), float(fm.freq_margin))
+            rmg = max(float(sys.rate_margin), float(fm.rate_margin))
+            if an is not None or fmg != sys.freq_margin \
+                    or rmg != sys.rate_margin:
+                sys = dataclasses.replace(sys, an=an, freq_margin=fmg,
+                                          rate_margin=rmg)
+        if fam.codec_kind == sys.codec_kind:
+            return sys
+        q_dim = None if fam.codec_kind == "rotated" else sys.q_dim
+        return dataclasses.replace(sys, codec_kind=fam.codec_kind,
+                                   q_dim=q_dim)
+
+    # ------------------------------------------------------------------
+    @property
+    def objective(self) -> Objective:
+        """The convergence-error measure m implied by the step rule."""
+        if self.step is None:
+            return Objective.JOINT
+        return Objective.coerce(self.step.name, _warn=False)
+
+    def _resolve(self, m) -> Objective:
+        m = self.objective if m is None else Objective.coerce(m, _warn=False)
+        if m is Objective.JOINT:
+            if self.step is not None:
+                raise ValueError(
+                    f"m=J jointly optimizes the step size; this Scenario "
+                    f"pins step={self.step!r} — drop it or pick its m")
+        else:
+            want = _RULE_FOR[m]
+            if not isinstance(self.step, want):
+                raise ValueError(
+                    f"objective {m.name} needs step={want.__name__}, "
+                    f"got {type(self.step).__name__ if self.step else None}")
+        return m
+
+    def problem(self, m=None, vmap: Optional[VarMap] = None) -> ParamOptProblem:
+        """The underlying :class:`ParamOptProblem` (escape hatch for direct
+        ``evaluate``/``feasible`` queries and fixed-parameter baselines)."""
+        m = self._resolve(m)
+        fam = self.family_obj
+        if vmap is None:
+            vmap = fam.make_varmap(
+                self.system.N,
+                m in (Objective.EXPONENTIAL, Objective.JOINT),
+                self.samples_per_worker)
+        gamma = None if self.step is None else float(self.step.gamma)
+        rho = getattr(self.step, "rho", None)
+        return ParamOptProblem(sys=self._priced_system, consts=self.consts,
+                               T_max=self.T_max, C_max=self.C_max, m=m,
+                               gamma=gamma, rho=rho, vmap=vmap, family=fam,
+                               sampling=self.sampling_obj,
+                               faults=self.faults_obj)
+
+    # ------------------------------------------------------------------
+    def _plan_from_result(self, m: Objective, r) -> Plan:
+        """Freeze a :class:`~repro.opt.gia.GIAResult` into a Plan."""
+        if m is Objective.JOINT:
+            step = ConstantRule(float(r.gamma))
+        else:
+            step = self.step
+        sys = self._priced_system
+        fam = self.family_obj
+        samp = self.sampling_obj
+        if samp.free_S:                   # integer-recovered cohort size
+            cohort_S = None if r.S is None else int(r.S)
+        else:
+            cohort_S = samp.pinned_S(sys.N)   # None for full / neutral
+        sampling_p = samp.plan_p(sys.N) if cohort_S is not None else None
+        return Plan(K0=int(r.K0), Kn=tuple(int(k) for k in r.Kn), B=int(r.B),
+                    step_rule=step, s0=sys.s0, sn=tuple(sys.sn), dim=sys.dim,
+                    q_dim=sys.q_dim, wire=sys.wire, objective=m,
+                    family=fam.key, codec_kind=fam.codec_kind,
+                    agg_weights=fam.agg_weights(sys.N),
+                    momentum=fam.momentum, normalize=fam.normalize,
+                    sampling=samp.key if cohort_S is not None else "full",
+                    cohort_S=cohort_S, sampling_p=sampling_p,
+                    faults=None,          # fault models are gated to "none"
+                    predicted_E=r.E, predicted_T=r.T,
+                    predicted_C=r.C, feasible=bool(r.feasible),
+                    converged=bool(r.converged))
+
+    def optimize(self, m=None, z0=None, tol: float = 1e-4,
+                 max_iter: int = 60, verbose: bool = False,
+                 backend: str = "numpy", server=None) -> Plan:
+        """Solve the scenario's parameter-optimization problem (Algorithms
+        2-5) with the scalar NumPy GIA and freeze the solution into a
+        :class:`Plan`.  ``z0`` warm-starts the GIA (e.g. from a previously
+        solved neighbor's ``Plan``).  The batched/fused solvers
+        (``backend="jnp"``/``"jnp-fused"``) and PlanServer (``server``) are
+        not ported yet."""
+        if server is not None:
+            raise not_ported("PlanServer (Scenario.optimize(server=...))", 8)
+        if backend != "numpy":
+            raise not_ported(f"solver backend {backend!r}", 7)
+        m = self._resolve(m)
+        with _obs.trace.span("scenario.optimize", m=str(m.value),
+                             family=str(self.family), backend=backend):
+            prob = self.problem(m)
+            r = solve_param_opt(prob, z0=z0, tol=tol, max_iter=max_iter,
+                                verbose=verbose)
+            return self._plan_from_result(m, r)
+
+    # ------------------------------------------------------------------
+    def run(self, plan: Plan, task=None, backend: str = "reference",
+            seed: int = 0, max_rounds: Optional[int] = None,
+            eval_every: int = 0, device="cuda") -> RunReport:
+        """Execute training with exactly the Plan's parameters.
+
+        backend="reference" runs Algorithm 1 single-process on a reference
+        task (default: the Sec.-VII MNIST-like task on ``device``); a given
+        task must live on ``device``.  The SPMD runtime is not ported yet.
+        """
+        if backend != "reference":
+            raise not_ported(f"run backend {backend!r}", 9)
+        with _obs.trace.span("scenario.run", backend=backend,
+                             family=plan.family, rounds=plan.K0):
+            return self._run_reference(plan, task, seed, max_rounds,
+                                       eval_every, device)
+
+    def _report(self, plan: Plan, rounds: int, model_dim: int, wall: float,
+                final_metrics: dict, history) -> RunReport:
+        # full participation, priced at the Plan's wire.  Cost-model
+        # measurements evaluate on the *priced* system — the one whose
+        # M_s/q_s describe the family's codec — so measured_E/T are
+        # comparable to predicted_E/T within the same report.
+        sys = self._priced_system
+        Kn = np.asarray(plan.Kn)
+        return RunReport(
+            plan=plan, backend="reference", rounds=rounds,
+            model_dim=model_dim, wall_time_s=wall,
+            comm_bits=rounds * plan.round_bits(dim=model_dim),
+            measured_E=energy_cost(sys, rounds, Kn, plan.B),
+            measured_T=time_cost(sys, rounds, Kn, plan.B),
+            final_metrics=dict(final_metrics), history=tuple(history))
+
+    def _run_reference(self, plan, task, seed, max_rounds, eval_every,
+                       device):
+        task = MNISTTask(device=device) if task is None else task
+        if task.device != torch.device(device):
+            raise ValueError(f"task lives on {task.device}, the run was asked "
+                             f"for device={device!r}")
+        cfg = plan.to_genqsgd_config(max_K0=max_rounds, seed=seed)
+        alg = GenQSGD(task.loss, task.make_data(plan.N), task.shapes, cfg)
+        gen = torch.Generator(device=task.device)
+        x0 = flatten_like(task.init_params(gen.manual_seed(seed)))
+        eval_fn = task.metrics if eval_every else None
+        t0 = time.time()
+        xf, hist = alg.run(x0, gen.manual_seed(seed + 1), eval_fn=eval_fn,
+                           eval_every=eval_every or max(1, cfg.K0))
+        if xf.is_cuda:                    # the launches are asynchronous
+            torch.cuda.synchronize(xf.device)
+        wall = time.time() - t0
+        final = task.metrics(xf)
+        return self._report(plan, cfg.K0, alg.dim, wall, final, hist)

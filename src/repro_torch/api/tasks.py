@@ -1,0 +1,98 @@
+"""Training tasks for ``Scenario.run``.
+
+A *reference task* bundles what the single-process runtime (Algorithm 1)
+needs:
+
+  dim                     model dimension (what ``EdgeSystem.dim`` should be)
+  device                  where the data and the run live
+  init_params(generator)  fresh model parameters
+  loss(params, batch)     per-model training loss
+  make_data(N)            per-worker data (X, y) with leading axis N
+  metrics(params)         evaluation dict (used for history + final report)
+
+Provided: :class:`MNISTTask`, the paper's Sec.-VII 784-128-10 MLP on the
+synthetic MNIST-like set.  The quadratic test task and the SPMD task wait
+for their slices (ROADMAP.md, Queue 1, items 5 and 9).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.convergence import MLProblemConstants
+from ..data.federated import partition_iid
+from ..models import mlp
+
+__all__ = ["MNISTTask"]
+
+
+class MNISTTask:
+    """The Sec.-VII task: two-layer MLP on the 60k-sample MNIST-like set.
+
+    The data lives on ``device`` (the card unless the caller asks for the
+    CPU): 50,000 training samples of 784 f32 are about 157 MB.
+    """
+
+    dim = mlp.PARAM_DIM
+    shapes = {"w1": (784, 128), "b1": (128,), "w2": (128, 10), "b2": (10,)}
+
+    def __init__(self, n_train: int = 50000, seed: int = 0,
+                 eval_samples: int = 2048, device="cuda"):
+        self.n_train = n_train
+        self.seed = seed
+        self.eval_samples = eval_samples
+        self.device = resolve_device(device)
+        self._data = None
+        self._full = None
+
+    # -- data ----------------------------------------------------------
+    def _load(self):
+        if self._data is None:
+            from ..data.synthetic import mnist_like
+            X, y = mnist_like(seed=self.seed)
+            n = self.n_train
+            self._full = (X, y)
+            self._data = (X[:n], y[:n], self._tensor(X[n:]),
+                          self._tensor(y[n:]))
+        return self._data
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        dt = torch.int64 if a.dtype.kind == "i" else t.dtype
+        return t.to(device=self.device, dtype=dt)
+
+    def make_data(self, N: int):
+        Xtr, ytr, _, _ = self._load()
+        Xw, yw = partition_iid(Xtr, ytr, N)
+        return self._tensor(np.stack(Xw)), self._tensor(np.stack(yw))
+
+    # -- model ---------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> dict:
+        return mlp.init_params(generator)
+
+    loss = staticmethod(mlp.loss)
+
+    def metrics(self, params) -> dict:
+        _, _, Xte, yte = self._load()
+        if isinstance(params, torch.Tensor):      # a flat model vector
+            from ..core.genqsgd import unflatten_like
+            params = unflatten_like(params, self.shapes)
+        k = self.eval_samples
+        with torch.no_grad():
+            eval_loss = float(mlp.loss(params, (Xte[:k], yte[:k])))
+        return {"eval_loss": eval_loss,
+                "test_acc": mlp.accuracy(params, Xte, yte)}
+
+    # -- pre-training constants (Sec. IV-A) ----------------------------
+    def estimate_constants(self, N: int, seed: int = 0,
+                           n_iters: int = 300) -> MLProblemConstants:
+        """Probe (L, sigma, G, f_gap) by pre-training (Sec. IV-A) on the
+        full dataset; the start point and the mini-batches come from a
+        ``torch.Generator`` seeded ``seed`` on the task's device."""
+        self._load()
+        X, y = (self._tensor(a) for a in self._full)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        d = mlp.estimate_constants(X, y, gen, n_iters=n_iters)
+        return MLProblemConstants(L=d["L"], sigma=d["sigma"], G=d["G"],
+                                  f_gap=d["f_gap"], N=N)

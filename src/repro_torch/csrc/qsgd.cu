@@ -1,0 +1,211 @@
+// QSGD kernels for Hopper (sm_90a): the norm (K1), the stochastic quantize
+// (K2) and the fused dequantize + model update (K3) of GenQSGD's encode and
+// server apply.  Plain C entry points, loaded with ctypes by
+// repro_torch/kernels/build.py; the Python wrappers and the plain PyTorch
+// version of each kernel live in repro_torch/kernels/qsgd.py.
+//
+// Replaces (JAX package, src/repro/kernels/qsgd.py):
+//   K1 qsgd_sumsq          <- _sumsq_kernel / sumsq_kernel_call
+//   K2 qsgd_quantize       <- _quantize_kernel / quantize_kernel_call
+//   K3 qsgd_dequant_apply  <- _dequant_apply_kernel / dequant_apply_kernel_call
+//
+// All three are streaming passes: one read of each input, one write of each
+// output, a few flops per element, so device memory bandwidth bounds them at
+// large n.  At the model's D = 101,770 they are bound by launch latency.
+// The TPU version carried the sum of squares from one grid step to the next
+// in a (1,1) output block; blocks here run in parallel and in no order, so
+// K1 is two launches: per-block partial sums, then one block per row that
+// adds its partials in a fixed order (no float atomics: the norm is the
+// same from run to run).  Every kernel masks its own ragged edge, so no
+// padding to the TPU's 512x1024 tile grid is needed.
+//
+// Built WITHOUT --use_fast_math: K2 must keep IEEE '/' and sqrtf and its
+// multiply/subtract unfused (it is held bitwise against the plain version),
+// and K3 spells out __fmul_rn/__fadd_rn so nvcc cannot contract into an FMA
+// that the plain version does not do.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Fixed-order block sum (warp shuffles, then warp 0 over the warp sums);
+// the result is valid in thread 0.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_part[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  v = (threadIdx.x < kThreads / 32) ? warp_part[lane] : 0.f;
+  if (warp == 0) v = warp_sum(v);
+  return v;
+}
+
+// K1, stage 1: grid (P, rows).  Block (p, r) sums y[r, i]^2 over a grid
+// stride of 16-byte loads; the row is peeled to 16-byte alignment first
+// (rows of odd length start mid-vector) and its tail done scalar.
+__global__ void __launch_bounds__(kThreads)
+sumsq_partial_kernel(const float* __restrict__ y, long long n,
+                     float* __restrict__ partials) {
+  const float* row = y + (long long)blockIdx.y * n;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
+  if (head > n) head = n;
+  float acc = 0.f;
+  if (tid < head) {
+    const float v = row[tid];
+    acc += v * v;
+  }
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  const long long nvec = (n - head) >> 2;
+  for (long long i = tid; i < nvec; i += stride) {
+    const float4 v = body[i];
+    acc += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  const long long t = head + (nvec << 2) + tid;
+  if (t < n) {
+    const float v = row[t];
+    acc += v * v;
+  }
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
+// K1, stage 2: one block per row adds its P partials in a fixed order,
+// then norm = sqrt(ss), safe = norm > 0 ? norm : 1, inv = s / safe — the
+// order of the TPU fused encode (qsgd.py:184-186), on the device, so an
+// encode never waits on the host.
+__global__ void __launch_bounds__(kThreads)
+sumsq_finish_kernel(const float* __restrict__ partials, int P, float s,
+                    float* __restrict__ ss, float* __restrict__ norm,
+                    float* __restrict__ inv) {
+  const float* p = partials + (long long)blockIdx.x * P;
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) acc += p[i];
+  const float tot = block_sum(acc);
+  if (threadIdx.x == 0) {
+    const float nr = sqrtf(tot);
+    const float safe = nr > 0.f ? nr : 1.f;
+    ss[blockIdx.x] = tot;
+    norm[blockIdx.x] = nr;
+    inv[blockIdx.x] = s / safe;
+  }
+}
+
+// K2: grid (X, rows).  lvl = sign(y) * (floor(|y| inv) + [u < frac]), in
+// the TPU kernel's op order (qsgd.py:67-73); the level is an exact small
+// integer in float, so its conversion to the container is exact.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float* __restrict__ y, const float* __restrict__ u,
+                const float* __restrict__ inv, long long n,
+                T* __restrict__ out) {
+  const long long off = (long long)blockIdx.y * n;
+  const float iv = inv[blockIdx.y];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float yv = y[off + i];
+    const float scaled = __fmul_rn(fabsf(yv), iv);
+    const float base = floorf(scaled);
+    const float lvl = base + (u[off + i] < __fsub_rn(scaled, base) ? 1.f : 0.f);
+    const float sgn = yv > 0.f ? 1.f : (yv < 0.f ? -1.f : 0.f);
+    out[off + i] = static_cast<T>(static_cast<int>(sgn * lvl));
+  }
+}
+
+// K3: out = x + (gamma * lvl) * scale with scale = norm / s, the TPU
+// kernel's order (qsgd.py:100).  Out of place: x is the round's model
+// vector, which the caller still holds.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequant_apply_kernel(const float* __restrict__ x, const T* __restrict__ lvl,
+                     const float* __restrict__ norm, float s, float gamma,
+                     long long n, float* __restrict__ out) {
+  const float scale = norm[0] / s;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float l = static_cast<float>(lvl[i]);
+    out[i] = __fadd_rn(x[i], __fmul_rn(__fmul_rn(gamma, l), scale));
+  }
+}
+
+unsigned int grid_x(long long n, long long per_block, unsigned int cap) {
+  long long g = (n + per_block - 1) / per_block;
+  if (g < 1) g = 1;
+  return (unsigned int)(g < cap ? g : cap);
+}
+
+template <typename T>
+int launch_quantize(const float* y, const float* u, const float* inv,
+                    long long rows, long long n, T* out, cudaStream_t st) {
+  const dim3 grid(grid_x(n, 4LL * kThreads, 4096u), (unsigned int)rows);
+  quantize_kernel<T><<<grid, kThreads, 0, st>>>(y, u, inv, n, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dequant_apply(const float* x, const T* lvl, const float* norm,
+                         float s, float gamma, long long n, float* out,
+                         cudaStream_t st) {
+  const unsigned int grid = grid_x(n, 4LL * kThreads, 8192u);
+  dequant_apply_kernel<T><<<grid, kThreads, 0, st>>>(x, lvl, norm, s, gamma,
+                                                     n, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: y (rows, n) f32 -> ss, norm, inv (rows,) f32; partials (rows * P,)
+// is scratch the caller allocates.
+int qsgd_sumsq(const float* y, long long rows, long long n, int P, float s,
+               float* partials, float* ss, float* norm, float* inv,
+               cudaStream_t st) {
+  const dim3 grid1((unsigned int)P, (unsigned int)rows);
+  sumsq_partial_kernel<<<grid1, kThreads, 0, st>>>(y, n, partials);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sumsq_finish_kernel<<<(unsigned int)rows, kThreads, 0, st>>>(
+      partials, P, s, ss, norm, inv);
+  return (int)cudaGetLastError();
+}
+
+// K2: y, u (rows, n) f32, inv (rows,) f32 -> levels (rows, n).
+int qsgd_quantize_i8(const float* y, const float* u, const float* inv,
+                     long long rows, long long n, int8_t* out, cudaStream_t st) {
+  return launch_quantize<int8_t>(y, u, inv, rows, n, out, st);
+}
+
+int qsgd_quantize_i32(const float* y, const float* u, const float* inv,
+                      long long rows, long long n, int32_t* out,
+                      cudaStream_t st) {
+  return launch_quantize<int32_t>(y, u, inv, rows, n, out, st);
+}
+
+// K3: x (n,) f32, levels (n,), norm (1,) f32 -> out (n,) f32.
+int qsgd_dequant_apply_i8(const float* x, const int8_t* lvl, const float* norm,
+                          float s, float gamma, long long n, float* out,
+                          cudaStream_t st) {
+  return launch_dequant_apply<int8_t>(x, lvl, norm, s, gamma, n, out, st);
+}
+
+int qsgd_dequant_apply_i32(const float* x, const int32_t* lvl,
+                           const float* norm, float s, float gamma, long long n,
+                           float* out, cudaStream_t st) {
+  return launch_dequant_apply<int32_t>(x, lvl, norm, s, gamma, n, out, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,203 @@
+"""The QSGD kernels of GenQSGD's hot path, hand-written in CUDA for Hopper
+(``csrc/qsgd.cu``), with their launch wrappers and plain PyTorch versions.
+
+  K1 :func:`qsgd_sumsq`          replaces ``repro/kernels/qsgd.py``
+                                 ``_sumsq_kernel`` / ``sumsq_kernel_call``
+  K2 :func:`qsgd_quantize`       replaces ``_quantize_kernel`` /
+                                 ``quantize_kernel_call``
+  K3 :func:`qsgd_dequant_apply`  replaces ``_dequant_apply_kernel`` /
+                                 ``dequant_apply_kernel_call``
+
+What bounds them on the card: each is one streaming pass (K1 reads 4n
+bytes, K2 reads 8n and writes n or 4n, K3 reads 4n plus the levels and
+writes 4n) with a handful of flops per element, so device-memory bandwidth
+(3.35 TB/s on an H100 SXM) bounds them at large n; at the model's
+D = 101,770 a launch moves well under a megabyte and launch latency
+bounds them.  The design therefore batches: K1 and K2 take a (rows, n)
+matrix, so the N worker uploads of a round are one launch each, and K1
+leaves norm and ``inv = s / norm`` on the device, so an encode never
+synchronizes with the host.  K1 is deterministic (fixed-order two-stage
+reduction, no float atomics).  Levels are int8 for s <= 127, as on the
+TPU, and int32 above (the paper's s = 2^14).
+
+Each wrapper runs the kernel for a CUDA tensor and the plain version for a
+CPU tensor — only because the tensor lies on the CPU; a CUDA tensor never
+falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "level_dtype", "sumsq_blocks",
+           "qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply",
+           "sumsq_plain", "quantize_plain", "dequant_apply_plain"]
+
+#: kernel launches per wrapper (the plain versions never count)
+LAUNCHES = {"qsgd_sumsq": 0, "qsgd_quantize": 0, "qsgd_dequant_apply": 0}
+
+_THREADS = 256
+_MAX_ROWS = 65535          # grid.y limit
+_PTR, _LL, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+#: argument types of the C entry points in csrc/qsgd.cu, stream excluded
+_SIGS = {
+    "qsgd_sumsq": [_PTR, _LL, _LL, ctypes.c_int, _F32] + [_PTR] * 4,
+    "qsgd_quantize_i8": [_PTR] * 3 + [_LL] * 2 + [_PTR],
+    "qsgd_quantize_i32": [_PTR] * 3 + [_LL] * 2 + [_PTR],
+    "qsgd_dequant_apply_i8": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
+    "qsgd_dequant_apply_i32": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
+}
+_FNS: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def level_dtype(s: int) -> torch.dtype:
+    """Narrowest signed container for levels in [-s, s]."""
+    return torch.int8 if s <= 127 else torch.int32
+
+
+def sumsq_blocks(n: int) -> int:
+    """K1's stage-1 blocks per row: about 16 floats a thread, at most 1024
+    (a function of n alone, so the reduction order never changes)."""
+    return max(1, min(1024, -(-n // (_THREADS * 16))))
+
+
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        from .build import load
+        fn = getattr(load("qsgd"), name)
+        fn.argtypes = _SIGS[name] + [_PTR]   # + the stream
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on anything else."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"QSGD kernels take tensors on one CUDA device (or "
+                         f"all on the CPU), got {[str(t.device) for t in tensors]}")
+    return True
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int):
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {ndim}-d {dtype} tensor, "
+                         f"got {tuple(t.shape)} {t.dtype} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _launch(name: str, *args):
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the same functions, written straightforwardly
+# ---------------------------------------------------------------------------
+def sumsq_plain(y: torch.Tensor, s):
+    """(ss, norm, inv) per row of a (rows, n) f32 matrix."""
+    ss = torch.sum(y * y, dim=-1)
+    norm = torch.sqrt(ss)
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    # tensor / tensor: a Python scalar on the left would run as
+    # reciprocal-times-scalar, not as the kernel's IEEE division
+    return ss, norm, torch.full_like(safe, float(s)) / safe
+
+
+def quantize_plain(y: torch.Tensor, u: torch.Tensor, inv: torch.Tensor, s):
+    """sign(y) * (floor(|y| inv) + [u < frac]) per row, in level_dtype(s)."""
+    scaled = torch.abs(y) * inv[:, None]
+    base = torch.floor(scaled)
+    lvl = base + (u < (scaled - base)).to(torch.float32)
+    return (torch.sign(y) * lvl).to(level_dtype(s))
+
+
+def dequant_apply_plain(x: torch.Tensor, lvl: torch.Tensor, norm: torch.Tensor,
+                        s, gamma: float):
+    """x + (gamma * lvl) * (norm / s)."""
+    n1 = norm.reshape(1)
+    scale = n1 / torch.full_like(n1, float(s))   # IEEE division, as K3
+    return x + (float(gamma) * lvl.to(torch.float32)) * scale
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def qsgd_sumsq(y: torch.Tensor, s):
+    """K1: y (rows, n) f32 -> (ss, norm, inv), each (rows,) f32, with
+    ``inv = s / (norm if norm > 0 else 1)``."""
+    _check(y, "qsgd_sumsq y", torch.float32, 2)
+    if not _on_card(y):
+        return sumsq_plain(y, s)
+    rows, n = y.shape
+    if not 1 <= rows <= _MAX_ROWS or n < 1:
+        raise ValueError(f"qsgd_sumsq: bad shape {tuple(y.shape)}")
+    P = sumsq_blocks(n)
+    partials = torch.empty(rows * P, dtype=torch.float32, device=y.device)
+    ss, norm, inv = (torch.empty(rows, dtype=torch.float32, device=y.device)
+                     for _ in range(3))
+    _launch("qsgd_sumsq", y.data_ptr(), rows, n, P, float(s),
+            partials.data_ptr(), ss.data_ptr(), norm.data_ptr(),
+            inv.data_ptr())
+    LAUNCHES["qsgd_sumsq"] += 1
+    return ss, norm, inv
+
+
+def qsgd_quantize(y: torch.Tensor, u: torch.Tensor, inv: torch.Tensor, s):
+    """K2: y, u (rows, n) f32, inv (rows,) f32 -> levels (rows, n) in
+    ``level_dtype(s)``."""
+    _check(y, "qsgd_quantize y", torch.float32, 2)
+    _check(u, "qsgd_quantize u", torch.float32, 2)
+    _check(inv, "qsgd_quantize inv", torch.float32, 1)
+    if u.shape != y.shape or inv.shape[0] != y.shape[0]:
+        raise ValueError(f"qsgd_quantize: shapes y {tuple(y.shape)} u "
+                         f"{tuple(u.shape)} inv {tuple(inv.shape)}")
+    if not _on_card(y, u, inv):
+        return quantize_plain(y, u, inv, s)
+    rows, n = y.shape
+    if not 1 <= rows <= _MAX_ROWS or n < 1:
+        raise ValueError(f"qsgd_quantize: bad shape {tuple(y.shape)}")
+    dt = level_dtype(s)
+    out = torch.empty((rows, n), dtype=dt, device=y.device)
+    name = "qsgd_quantize_i8" if dt == torch.int8 else "qsgd_quantize_i32"
+    _launch(name, y.data_ptr(), u.data_ptr(), inv.data_ptr(), rows, n,
+            out.data_ptr())
+    LAUNCHES["qsgd_quantize"] += 1
+    return out
+
+
+def qsgd_dequant_apply(x: torch.Tensor, lvl: torch.Tensor, norm: torch.Tensor,
+                       s, gamma: float):
+    """K3: x (n,) f32, levels (n,) in ``level_dtype(s)``, norm (1,) or ()
+    f32 -> ``x + (gamma * lvl) * (norm / s)`` (n,) f32, out of place."""
+    _check(x, "qsgd_dequant_apply x", torch.float32, 1)
+    _check(lvl, "qsgd_dequant_apply lvl", level_dtype(s), 1)
+    if norm.dtype != torch.float32 or norm.numel() != 1 \
+            or lvl.shape != x.shape:
+        raise ValueError(f"qsgd_dequant_apply: x {tuple(x.shape)} lvl "
+                         f"{tuple(lvl.shape)} norm {tuple(norm.shape)} "
+                         f"{norm.dtype}")
+    if not _on_card(x, lvl, norm):
+        return dequant_apply_plain(x, lvl, norm, s, gamma)
+    n = x.shape[0]
+    if n < 1:
+        raise ValueError("qsgd_dequant_apply: empty x")
+    out = torch.empty_like(x)
+    name = ("qsgd_dequant_apply_i8" if lvl.dtype == torch.int8
+            else "qsgd_dequant_apply_i32")
+    _launch(name, x.data_ptr(), lvl.data_ptr(), norm.data_ptr(), float(s),
+            float(gamma), n, out.data_ptr())
+    LAUNCHES["qsgd_dequant_apply"] += 1
+    return out

@@ -1,0 +1,201 @@
+"""The first slice as a whole, at full width (D = 101,770, N = 10,
+s0 = sn = 2^14): Plans, one injected-draw round, and a short run of the
+quickstart Plan, each held against the JAX package on the CPU."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import EdgeSystem as REdge
+from repro.api import MNISTTask as RTask
+from repro.api import Plan as RPlan
+from repro.api import Scenario as RScenario
+from repro.core.convergence import MLProblemConstants as RConsts
+from repro.core.genqsgd import GenQSGD as RGenQSGD
+from repro.core.genqsgd import flatten_like as r_flatten
+from repro.core.step_rules import ConstantRule as RConstant
+import repro_torch
+from repro_torch.api import EdgeSystem, MNISTTask, Plan, Scenario
+from repro_torch.core.convergence import MLProblemConstants
+from repro_torch.core.genqsgd import GenQSGD, GenQSGDConfig, flatten_like
+from repro_torch.core.step_rules import ConstantRule
+from repro_torch.models.mlp import params_from_jax
+
+N, S = 10, 2**14
+CONSTS = dict(L=2.0, sigma=6.0, G=7.0, f_gap=2.4, N=N)
+#: the README quickstart's Plan (JAX package, CPU): K0=2748 Kn=[6]*10 B=1
+QUICK = dict(K0=2748, Kn=[6] * N, B=1, s0=S, sn=S, dim=101770)
+GAMMA = 0.001779
+
+
+@pytest.fixture(scope="module")
+def tasks():
+    return RTask(), MNISTTask(device="cpu")
+
+
+def _equal_plans(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "step_rule":
+            x, y = (type(x).__name__, x.gamma), (type(y).__name__, y.gamma)
+        elif f.name == "objective":
+            x, y = x.value, y.value
+        assert x == y or (x != x and y != y), (f.name, x, y)
+
+
+@pytest.mark.parametrize("m", ["C", "J"])
+def test_optimize_gives_equal_plans(m):
+    """The optimizer half is the same float64 NumPy in the same order: the
+    Plans are equal field for field."""
+    r = RScenario(REdge.paper_sec_vii(), RConsts(**CONSTS), T_max=1e5,
+                  C_max=0.25, step=RConstant(1e-3) if m == "C" else None)
+    p = Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
+                 T_max=1e5, C_max=0.25,
+                 step=ConstantRule(1e-3) if m == "C" else None)
+    rp, pp = r.optimize(), p.optimize()
+    assert pp.feasible and pp.objective.value == m
+    _equal_plans(rp, pp)
+    assert pp.round_bits() == rp.round_bits()
+    assert pp.describe() == rp.describe()
+
+
+def _jax_draws(key, n_local, K_max, B, D):
+    """The JAX round's draws, re-derived from its key chain: split(key,
+    N+1) gives the worker keys and the server key; each local step splits
+    the worker key for its mini-batch; the worker's codec noise uses the
+    same worker key that seeded its steps, the server's the server key."""
+    keys = jax.random.split(key, N + 1)
+    idx = np.zeros((N, K_max, B), np.int64)
+    for n in range(N):
+        k = keys[n]
+        for step in range(K_max):
+            k, bk = jax.random.split(k)
+            idx[n, step] = np.asarray(jax.random.randint(bk, (B,), 0,
+                                                         n_local))
+    uw = np.stack([np.asarray(jax.random.uniform(keys[n], (D,), jnp.float32))
+                   for n in range(N)])
+    us = np.asarray(jax.random.uniform(keys[N], (D,), jnp.float32))
+    return torch.from_numpy(idx), torch.tensor(uw), torch.tensor(us)
+
+
+def test_round_matches_reference(tasks):
+    """One round with the JAX package's draws injected.  Gradients differ
+    by float32 rounding between XLA and PyTorch; where that (or the
+    kernels' |y|*(s/norm) order) moves a value across a level boundary the
+    result moves by one server level gamma*||delta||/s0 or 1/N of a worker
+    level.  So: every coordinate within two server levels, and at most
+    1e-3 of them off by more than 1e-6."""
+    rtask, ptask = tasks
+    rcfg = RPlan.manual(step_rule=RConstant(GAMMA), **QUICK) \
+        .to_genqsgd_config()
+    pcfg = Plan.manual(step_rule=ConstantRule(GAMMA), **QUICK) \
+        .to_genqsgd_config()
+    rdata = rtask.make_data(N)
+    ralg = RGenQSGD(rtask.loss, rtask.sample, rcfg)
+    palg = GenQSGD(ptask.loss, ptask.make_data(N), ptask.shapes, pcfg)
+    p0 = rtask.init_params(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(5)
+    x_r, m_r = ralg._round(p0, rdata, key, jnp.float32(GAMMA))
+    x_r = np.asarray(r_flatten(x_r))
+    x0 = flatten_like(params_from_jax({k: np.asarray(v)
+                                       for k, v in p0.items()}))
+    draws = _jax_draws(key, palg.n_local, pcfg.K_max, pcfg.B, palg.dim)
+    x_p, m_p = palg.round(x0, *draws, GAMMA)
+    np.testing.assert_allclose(float(m_p["delta_norm"]),
+                               float(m_r["delta_norm"]), rtol=1e-5)
+    level = GAMMA * float(m_r["delta_norm"]) / S
+    diff = np.abs(x_p.numpy() - x_r)
+    assert diff.max() <= 2 * level + 1e-7, (diff.max(), level)
+    assert (diff > 1e-6).mean() <= 1e-3
+    # the round moved the model by about the reference's update
+    np.testing.assert_allclose(float(m_p["update_norm"]),
+                               float(m_r["update_norm"]), rtol=1e-3)
+
+
+ROUNDS = 100
+
+
+def test_short_run_matches_reference_spread(tasks):
+    """A short run of the quickstart Plan: comm bits exactly
+    rounds * (sum M_sn + M_s0), and test_acc / eval_loss within the spread
+    of the JAX package over three seeds — twice the range of those three,
+    plus 0.02, since a fourth seed of the same distribution may fall a
+    little outside the three."""
+    rtask, ptask = tasks
+    sysp = EdgeSystem.paper_sec_vii()
+    pscn = Scenario(sysp, MLProblemConstants(**CONSTS), T_max=1e5,
+                    C_max=0.25)
+    pplan = Plan.manual(step_rule=ConstantRule(GAMMA), **QUICK)
+    # the JAX reference runtime as its Scenario.run drives it (init from
+    # PRNGKey(seed), rounds from PRNGKey(seed + 1)), with one compiled
+    # round shared by the three seeds
+    ralg = RGenQSGD(rtask.loss, rtask.sample,
+                    RPlan.manual(step_rule=RConstant(GAMMA), **QUICK)
+                    .to_genqsgd_config(max_K0=ROUNDS))
+    rdata = rtask.make_data(N)
+    ref = [rtask.metrics(ralg.run(rtask.init_params(jax.random.PRNGKey(s)),
+                                  rdata, jax.random.PRNGKey(s + 1))[0])
+           for s in range(3)]
+    rep = pscn.run(pplan, task=ptask, max_rounds=ROUNDS, device="cpu")
+    assert rep.rounds == ROUNDS and rep.model_dim == 101770
+    assert rep.comm_bits == ROUNDS * (float(np.sum(sysp.M_sn)) + sysp.M_s0)
+    assert not rep.comm_bits_match          # a capped run is not the Plan
+    for name in ("test_acc", "eval_loss"):
+        vals = np.array([r[name] for r in ref])
+        tol = 2 * np.ptp(vals) + 0.02
+        assert abs(rep.final_metrics[name] - vals.mean()) <= tol, \
+            (name, rep.final_metrics[name], vals)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"family": "gqfedwavg"}, 4),
+    ({"family": "pm"}, 4),
+    ({"sampling": "uniform"}, 6),
+    ({"faults": "edge"}, 6),
+])
+def test_scenario_outside_the_slice_raises(kw, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
+                 T_max=1e5, C_max=0.25, **kw)
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda s: s.optimize(backend="jnp-fused"), 7),
+    (lambda s: s.optimize(server=object()), 8),
+    (lambda s: s.run(Plan.manual(K0=1, Kn=[1] * N, B=1,
+                                 step_rule=ConstantRule(0.1)),
+                     backend="spmd"), 9),
+])
+def test_entry_points_outside_the_slice_raise(call, item):
+    scn = Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
+                   T_max=1e5, C_max=0.25)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        call(scn)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"bucket": 4096}, 2), ({"codec_kind": "rotated"}, 2),
+    ({"momentum": 0.5}, 5), ({"agg_weights": (1.0,) * N}, 5),
+    ({"sampling_S": 4}, 6), ({"faults": object()}, 6),
+])
+def test_runtime_outside_the_slice_raises(kw, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        GenQSGDConfig(K0=1, Kn=(1,) * N, B=1, step_rule=ConstantRule(0.1),
+                      **kw)
+
+
+def test_no_quiet_cpu_fallback(monkeypatch):
+    """Entry points default to the card and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MNISTTask()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device("cuda")
+    scn = Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
+                   T_max=1e5, C_max=0.25)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scn.run(Plan.manual(K0=1, Kn=[1] * N, B=1,
+                            step_rule=ConstantRule(0.1)))
