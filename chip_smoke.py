@@ -5,13 +5,22 @@ in PERF.md).
     python3 chip_smoke.py
 
 Phases, each of which fails the script on error:
-  1. build: nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
-     ``build/`` (one nvcc per source, all started together);
+  1. build: nvcc compiles ``src/repro_torch/csrc/*.cu`` (``qsgd.cu`` and
+     ``fused_encode.cu``) for sm_90a into ``build/`` (one nvcc per source,
+     all started together);
   2. kernels vs plain: every QSGD kernel against its plain PyTorch version
-     on the card, at the main path's shapes (10 and 1 rows of
-     D = 101,770) and at a streaming size (n = 2^24), for s in
-     {7, 127, 16384}: K2 bitwise given the same inv, K1's norm within
-     rtol 1e-6, K3 within rtol 1e-5 / atol 1e-6; then each kernel's time
+     on the card.  K1-K3 at the main paths' shapes (10 and 1 rows of
+     D = 101,770 for GenQSGD, of d' = 2^17 for GQFedWAvg) and at a
+     streaming size (n = 2^24), for s in {7, 127, 16384}: K2 bitwise given
+     the same inv, K1's norm within rtol 1e-6, K3 within rtol 1e-5 /
+     atol 1e-6.  K4 at rows {1, 10} x n in K4_NS (1 .. 2^22, odd and
+     ragged lengths and every length the payload path gives it) and K5 at
+     rows {1, 10} x d {2, 64, 1024, 2^15} x seeds {0, 5, 2^32-1}, each at
+     s = 7 packed and s = 127 unpacked: the norm within rtol 1e-6, the
+     payload byte-identical to the plain quantize (+ pack) fed the kernel's
+     own norm, K5's rotated
+     rows bitwise the plain rotate; a launch the card refuses (K5 asked for
+     more shared memory than a block has) raises.  Then each kernel's time
      beside its plain version's, its byte bound and a one-call PyTorch
      yardstick where one exists (device times from CUDA-graph replay,
      beside the eager call's time with its host work);
@@ -22,7 +31,20 @@ Phases, each of which fails the script on error:
      just before the run and read just after; one round on the card is
      also held against the same round on the CPU (plain versions) with the
      same draws, and 20 rounds are profiled (device time by kernel, the
-     device's busy share).
+     device's busy share);
+  4. the GQFedWAvg closed loop at the same width:
+     ``Scenario(..., family="gqfedwavg").optimize()`` (rotated codec,
+     d' = 2^17) -> ``run(plan, max_rounds=200)``, counters read as in 3;
+     one round with unequal weights and beta = 0.9 on the card against the
+     CPU; 20 rounds profiled;
+  5. the payload entry point: ``make_codec(s, wire, kind, backend="cuda")
+     .encode_payload`` -> ``decode_payload`` for kind {qsgd, rotated} x
+     (wire, s) {(int4, 7), (int8, 127)} over the 10 worker deltas of a
+     phase-4 round and 1-D messages of 1,000 .. 2^22 coordinates, with the
+     counters read around the payload calls alone; each payload is held
+     against the plain versions on the same y and u (the norm within
+     rtol 1e-6, the bytes identical given the kernel's norm) and against
+     ``decode(*encode(y, u))``.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -44,10 +66,39 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 MAIN_D = 784 * 128 + 128 + 128 * 10 + 10
 STREAM_N = 1 << 24
 S_VALUES = (7, 127, 16384)
+FP32_OPS_PER_SM = FP32_OPS_PER_S / 132
+#: K1-K3's check shapes (rows, n): GenQSGD's (10 worker deltas and the
+#: server's), GQFedWAvg's at d' = 2^17, and the streaming size
+K1_SHAPES = ((10, MAIN_D), (1, MAIN_D), (10, 1 << 17), (1, 1 << 17),
+             (1, STREAM_N))
+#: K1-K3's timed shapes
+K1_TIMED = ((10, MAIN_D), (1, MAIN_D), (1, STREAM_N))
+PAYLOAD_NS = (1000, 1 << 15, (1 << 15) + 1, 1 << 16, 1 << 20, 1 << 22)
+#: K4's check lengths: odd and ragged ones, D, the rotated worker deltas'
+#: 2^17 and every length the payload phase gives K4 (its messages and
+#: their pow2 pads above K5's 2^15)
+K4_NS = tuple(sorted({1, 2, 127, 2049, MAIN_D, (1 << 16) + 3, 1 << 17,
+                      *PAYLOAD_NS, 1 << 16}))
+K5_DS = (2, 64, 1024, 1 << 15)
+K5_SEEDS = (0, 5, 2**32 - 1)
+FUSED_S = ((7, True), (127, False))          # (s, pack)
+#: GQFedWAvg with unequal aggregation weights and heavy momentum, for the
+#: card-vs-CPU round of phase 4
+SMOKE_WEIGHTS = (4, 4, 2, 2, 1, 1, 1, 1, 1, 1)
+SMOKE_MOMENTUM = 0.9
 REPLACES = {
     "qsgd_sumsq": "src/repro/kernels/qsgd.py:143",
     "qsgd_quantize": "src/repro/kernels/qsgd.py:82",
     "qsgd_dequant_apply": "src/repro/kernels/qsgd.py:109",
+    "fused_encode": "src/repro/kernels/qsgd.py:213",
+    "fused_rotate_encode": "src/repro/kernels/qsgd.py:280",
+}
+SOURCES = {
+    "qsgd_sumsq": "src/repro_torch/csrc/qsgd.cu",
+    "qsgd_quantize": "src/repro_torch/csrc/qsgd.cu",
+    "qsgd_dequant_apply": "src/repro_torch/csrc/qsgd.cu",
+    "fused_encode": "src/repro_torch/csrc/fused_encode.cu",
+    "fused_rotate_encode": "src/repro_torch/csrc/fused_encode.cu",
 }
 
 
@@ -135,9 +186,8 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(10, MAIN_D), (1, MAIN_D), (1, STREAM_N)]
     worst = {k: 0.0 for k in K.LAUNCHES}
-    for rows, n in shapes:
+    for rows, n in K1_SHAPES:
         y = torch.randn(rows, n, generator=gen, device=dev) * 3.0
         u = torch.rand(rows, n, generator=gen, device=dev)
         x = torch.randn(n, generator=gen, device=dev)
@@ -158,7 +208,7 @@ def phase_kernels() -> dict:
             if int(lvl.abs().max()) > s:
                 raise AssertionError(f"K2 level above s={s}")
             torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-6)
-            if (rows, n) == shapes[0] or (rows, n) == (1, MAIN_D):
+            if n == MAIN_D:
                 worst["qsgd_sumsq"] = max(worst["qsgd_sumsq"], float(
                     (norm - norm_p).abs().max()))
                 worst["qsgd_dequant_apply"] = max(
@@ -174,7 +224,7 @@ def phase_kernels() -> dict:
     # streaming size
     s = 16384
     rows_main = []
-    for rows, n in shapes:
+    for rows, n in K1_TIMED:
         y = torch.randn(rows, n, generator=gen, device=dev)
         u = torch.rand(rows, n, generator=gen, device=dev)
         x = torch.randn(n, generator=gen, device=dev)
@@ -222,12 +272,179 @@ def phase_kernels() -> dict:
     return {"worst": worst, "main": main}
 
 
+def reset_launches() -> None:
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+    K.reset_launches()
+    FE.reset_launches()
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+    return {**K.LAUNCHES, **FE.LAUNCHES}
+
+
+def payload_given_norm(y, u, s, norm, pack: bool):
+    """The plain quantize (+ pack) of each row fed a given norm per row."""
+    import torch
+    from repro_torch.compress.wire import pack_int4
+    from repro_torch.kernels import qsgd as K
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    lvl = K.quantize_plain(y, u, torch.full_like(safe, float(s)) / safe, s)
+    return pack_int4(lvl) if pack else lvl
+
+
+def k5_rotation(y, u, s, seed, pack: bool):
+    """K5's rotated rows, through the kernel's nullable copy-out pointer
+    (the wrapper passes null): a launch for the check, not counted."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_encode as FE
+    rows, d = y.shape
+    rot = torch.empty_like(y)
+    norm = torch.empty(rows, device=y.device)
+    out = torch.empty(rows, d // 2 if pack else d, dtype=torch.int8,
+                      device=y.device)
+    build.launch("fused_encode", "fused_rotate_encode",
+                 FE._SIGS["fused_rotate_encode"], y.data_ptr(), u.data_ptr(),
+                 *FE._k5_args(y, seed, s, pack), norm.data_ptr(),
+                 out.data_ptr(), rot.data_ptr())
+    return rot
+
+
+def phase_fused_kernels(dev) -> dict:
+    """K4 and K5 against their plain versions: the norm within rtol 1e-6,
+    the payload byte-identical given the kernel's norm, K5's rotation
+    bitwise; on the card, then their times."""
+    import torch
+    from repro_torch.compress.rotation import rotate
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = {"fused_encode": 0.0, "fused_rotate_encode": 0.0}
+
+    def check(name, out, norm, norm_p, want, what):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        torch.testing.assert_close(norm, norm_p, rtol=1e-6, atol=0)
+        if out.shape != want.shape or not torch.equal(out, want):
+            bad = int((out != want).sum()) if out.shape == want.shape else -1
+            raise AssertionError(f"{name} payload differs from the plain "
+                                 f"version at {bad} bytes ({what})")
+        return float((norm - norm_p).abs().max())
+
+    for rows in (1, 10):
+        for n in K4_NS:
+            y = torch.randn(rows, n, generator=gen, device=dev) * 3.0
+            u = torch.rand(rows, n, generator=gen, device=dev)
+            for s, pack in FUSED_S:
+                out, norm = FE.fused_encode(y, u, s, pack)
+                norm_p = K.sumsq_plain(y, s)[1]
+                err = check("K4", out, norm, norm_p,
+                            payload_given_norm(y, u, s, norm, pack),
+                            f"rows={rows} n={n} s={s} pack={pack}")
+                if (rows, n) == (10, MAIN_D):
+                    worst["fused_encode"] = max(worst["fused_encode"], err)
+        log(f"[fused] K4 rows={rows}: n in {K4_NS}, s=7 packed and s=127 "
+            f"unpacked agree with the plain version")
+    for rows in (1, 10):
+        for d in K5_DS:
+            y = torch.randn(rows, d, generator=gen, device=dev) * 3.0
+            u = torch.rand(rows, d, generator=gen, device=dev)
+            for seed in K5_SEEDS:
+                for s, pack in FUSED_S:
+                    out, norm = FE.fused_rotate_encode(y, u, s, seed, pack)
+                    r_p = rotate(y, seed)
+                    rot = (k5_rotation(y, u, s, seed, pack)
+                           if dev.type == "cuda" else r_p)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    if not torch.equal(rot.view(torch.int32),
+                                       r_p.view(torch.int32)):
+                        raise AssertionError(
+                            f"K5 rotation differs from the plain rotate "
+                            f"(rows={rows} d={d} seed={seed})")
+                    err = check("K5", out, norm, K.sumsq_plain(r_p, s)[1],
+                                payload_given_norm(r_p, u, s, norm, pack),
+                                f"rows={rows} d={d} seed={seed} s={s}")
+                    worst["fused_rotate_encode"] = max(
+                        worst["fused_rotate_encode"], err)
+        log(f"[fused] K5 rows={rows}: d in {K5_DS}, seeds {K5_SEEDS}: "
+            f"rotation bitwise, payload byte-identical")
+    if dev.type != "cuda":
+        return {"worst": worst, "main": {}}
+
+    # a launch the card refuses raises: 2^16 f32 of shared memory is more
+    # than a block may have (the wrapper itself refuses d > 2^15 earlier)
+    big = torch.zeros(1, 1 << 16, device=dev)
+    out = torch.empty(1, 1 << 15, dtype=torch.int8, device=dev)
+    norm = torch.empty(1, device=dev)
+    try:
+        build.launch("fused_encode", "fused_rotate_encode",
+                     FE._SIGS["fused_rotate_encode"], big.data_ptr(),
+                     big.data_ptr(), 1, 1 << 16, 0, 1.0, 7.0, 1,
+                     norm.data_ptr(), out.data_ptr(), None)
+    except RuntimeError as e:
+        log(f"[fused] refused launch raised: {e}")
+    else:
+        raise AssertionError("a K5 launch with 256 KiB of shared memory did "
+                             "not raise")
+    y = torch.randn(1, 1024, device=dev)
+    FE.fused_rotate_encode(y, torch.rand(1, 1024, device=dev), 7, 0, True)
+    torch.cuda.synchronize()                 # the refusal left no error
+
+    main = {}
+    for name, rows, n, s, pack in (
+            ("fused_encode", 10, MAIN_D, 7, True),
+            ("fused_encode", 10, 1 << 17, 7, True),
+            ("fused_encode", 1, 1 << 22, 7, True),
+            ("fused_encode", 1, 1 << 22, 127, False),
+            ("fused_rotate_encode", 1, 1024, 7, True),
+            ("fused_rotate_encode", 1, 1 << 15, 7, True),
+            ("fused_rotate_encode", 10, 1 << 15, 7, True)):
+        y = torch.randn(rows, n, generator=gen, device=dev)
+        u = torch.rand(rows, n, generator=gen, device=dev)
+        e = rows * n
+        out_bytes = rows * ((n + 1) // 2 if pack else n)
+        # each input read once, each output written once (the contract's
+        # bound); K4 reads y twice, so its traffic is 12.5n packed / 13n
+        nbytes = 8 * e + out_bytes + 4 * rows
+        if name == "fused_encode":
+            kern = (lambda y=y, u=u, s=s, pack=pack:
+                    FE.fused_encode(y, u, s, pack))
+            plain = (lambda y=y, u=u, s=s, pack=pack:
+                     FE.fused_encode_plain(y, u, s, pack))
+            ops = 8 * e
+            model = f"traffic model 12.5n/13n: {(nbytes + 4 * e) / HBM_BYTES_PER_S * 1e6:.2f} us"
+        else:
+            kern = (lambda y=y, u=u, s=s, pack=pack:
+                    FE.fused_rotate_encode(y, u, s, 5, pack))
+            plain = (lambda y=y, u=u, s=s, pack=pack:
+                     FE.fused_rotate_encode_plain(y, u, s, 5, pack))
+            ops = e * (n.bit_length() - 1) + 20 * e
+            model = (f"one-SM float32 bound per message "
+                     f"{ops / rows / FP32_OPS_PER_SM * 1e6:.2f} us")
+        bnd, by = bound_ms(nbytes, ops)
+        ms, pl = device_ms(kern), device_ms(plain)
+        log(f"[time] {name} rows={rows} n={n} s={s} pack={pack}: kernel "
+            f"{ms * 1e3:.2f} us (eager call {eager_ms(kern) * 1e3:.2f} us), "
+            f"plain {pl * 1e3:.2f} us, library n/a (no one PyTorch call "
+            f"quantizes and packs), bound {bnd * 1e3:.2f} us ({by}); {model}")
+        if (name, rows, n) in (("fused_encode", 10, MAIN_D),
+                               ("fused_rotate_encode", 1, 1 << 15)):
+            main[name] = (ms, pl, None, (bnd, by))
+    return {"worst": worst, "main": main}
+
+
 def phase_main_path() -> dict:
     import numpy as np
     import torch
     from repro_torch.api import EdgeSystem, MNISTTask, Scenario
     from repro_torch.core.genqsgd import GenQSGD, flatten_like
-    from repro_torch.kernels import qsgd as K
 
     t0 = time.perf_counter()
     task = MNISTTask(device="cuda")
@@ -247,9 +464,9 @@ def phase_main_path() -> dict:
 
     rounds = min(plan.K0, 400)
     scenario.run(plan, task=task, max_rounds=2)        # warm-up, not counted
-    K.reset_launches()
+    reset_launches()
     report = scenario.run(plan, task=task, max_rounds=rounds)
-    launches = dict(K.LAUNCHES)
+    launches = read_launches()
     log(report.summary())
     ms_round = report.wall_time_s / report.rounds * 1e3
     log(f"[main] {report.rounds} rounds, {ms_round:.3f} ms/round, "
@@ -271,11 +488,12 @@ def phase_main_path() -> dict:
     server = 0 if plan.s0 is None else 1
     want = {"qsgd_sumsq": rounds * (workers + server),
             "qsgd_quantize": rounds * (workers + server),
-            "qsgd_dequant_apply": rounds * server}
+            "qsgd_dequant_apply": rounds * server,
+            "fused_encode": 0, "fused_rotate_encode": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
 
     cfg = plan.to_genqsgd_config(max_K0=1)
@@ -306,7 +524,210 @@ def phase_main_path() -> dict:
         f"(server level {level:.3g})")
     profile_rounds(algs["cuda"], x_gpu, (idx.cuda(), uw.cuda(), us.cuda()),
                    gamma)
-    return {"launches": launches, "ms_round": ms_round}
+    return {"launches": launches, "ms_round": ms_round, "task": task,
+            "consts": consts}
+
+
+def phase_gqfedwavg(task, consts, max_rounds: int = 200,
+                    profile: bool = True) -> dict:
+    """Phase 4: the GQFedWAvg closed loop at full width on ``task``'s
+    device, then one round on it against the same round on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.api import EdgeSystem, MNISTTask, Scenario
+    from repro_torch.compress import make_codec
+    from repro_torch.core.genqsgd import GenQSGD, flatten_like
+
+    dev = task.device
+    system = EdgeSystem.paper_sec_vii(dim=task.dim)
+    scenario = Scenario(system=system, consts=consts, T_max=1e5, C_max=0.25,
+                        family="gqfedwavg")
+    t0 = time.perf_counter()
+    plan = scenario.optimize()
+    log(f"[gqfedwavg] optimize {time.perf_counter() - t0:.2f} s: "
+        f"{plan.describe()}")
+    if not plan.feasible or plan.codec_kind != "rotated":
+        raise AssertionError(f"want a feasible rotated Plan, got feasible="
+                             f"{plan.feasible} codec_kind={plan.codec_kind}")
+
+    rounds = min(plan.K0, max_rounds)
+    scenario.run(plan, task=task, max_rounds=2, device=dev)   # warm-up
+    reset_launches()
+    report = scenario.run(plan, task=task, max_rounds=rounds, device=dev)
+    launches = read_launches()
+    log(report.summary())
+    ms_round = report.wall_time_s / report.rounds * 1e3
+    log(f"[gqfedwavg] {report.rounds} rounds, {ms_round:.3f} ms/round, "
+        f"test_acc {report.final_metrics['test_acc']:.4f}, "
+        f"launches {launches}")
+
+    priced = scenario._priced_system
+    want_bits = report.rounds * (float(np.sum(priced.M_sn)) + priced.M_s0)
+    msg = [make_codec(s_, kind="rotated").wire_bits(task.dim)
+           for s_ in list(plan.sn) + [plan.s0]]
+    if report.comm_bits != want_bits or \
+            report.comm_bits != report.rounds * sum(msg):
+        raise AssertionError(f"comm bits {report.comm_bits} != rounds * "
+                             f"(sum M_sn + M_s0) = {want_bits} at the rotated "
+                             f"pricing {msg[-1]} bits/message")
+    workers = 1 if len(set(plan.sn)) == 1 else plan.N
+    want = {"qsgd_sumsq": rounds * (workers + 1),
+            "qsgd_quantize": rounds * (workers + 1),
+            "qsgd_dequant_apply": 0, "fused_encode": 0,
+            "fused_rotate_encode": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    x0 = flatten_like(task.init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    loss0 = task.metrics(x0)["eval_loss"]
+    m = report.final_metrics
+    if not (np.isfinite(m["eval_loss"]) and np.isfinite(m["test_acc"])
+            and m["eval_loss"] < loss0):
+        raise AssertionError(f"the run did not learn: {m}, initial eval "
+                             f"loss {loss0}")
+    log(f"[gqfedwavg] eval loss {loss0:.4f} -> {m['eval_loss']:.4f}")
+
+    # one round, unequal weights and beta = 0.9, on the device vs the CPU
+    w = np.asarray(SMOKE_WEIGHTS, np.float64)
+    cfg = dataclasses.replace(plan.to_genqsgd_config(max_K0=1),
+                              momentum=SMOKE_MOMENTUM,
+                              agg_weights=tuple(float(x) for x in w / w.sum()))
+    cpu_task = task if dev.type == "cpu" else MNISTTask(device="cpu")
+    algs = {"dev": GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                           cfg),
+            "cpu": GenQSGD(cpu_task.loss, cpu_task.make_data(plan.N),
+                           cpu_task.shapes, cfg)}
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x0 = flatten_like(cpu_task.init_params(gen))
+    D, M = x0.shape[0], algs["cpu"].msg_dim
+    idx = torch.randint(0, algs["cpu"].n_local, (plan.N, plan.K_max, plan.B),
+                        generator=gen)
+    uw, us = torch.rand(plan.N, M, generator=gen), torch.rand(M, generator=gen)
+    gamma = plan.gamma
+    draws = tuple(t.to(dev) for t in (idx, uw, us))
+    x_cpu, m_cpu = algs["cpu"].round(x0, idx, uw, us, gamma)
+    x_dev, _ = algs["dev"].round(x0.to(dev), *draws, gamma)
+    diff = (x_dev.cpu() - x_cpu).abs()
+    level = gamma * float(m_cpu["delta_norm"]) / plan.s0
+    if float(diff.max()) > 2 * level + 1e-6 or \
+            int((diff > 1e-6).sum()) > D // 1000:
+        raise AssertionError(f"device round differs from the CPU round: max "
+                             f"{float(diff.max()):.3g} (level {level:.3g}), "
+                             f"{int((diff > 1e-6).sum())} coordinates")
+    log(f"[gqfedwavg] one round (weights {SMOKE_WEIGHTS}, beta "
+        f"{SMOKE_MOMENTUM}) device vs CPU: max abs diff "
+        f"{float(diff.max()):.3g} (server level {level:.3g})")
+    deltas = algs["dev"].worker_deltas(x0.to(dev), draws[0],
+                                       float(np.float32(gamma)))
+    if profile:
+        profile_rounds(algs["dev"], x_dev, draws, gamma)
+    return {"launches": launches, "ms_round": ms_round, "deltas": deltas}
+
+
+def phase_payload(deltas) -> dict:
+    """Phase 5: ``encode_payload`` -> ``decode_payload`` on the device of
+    ``deltas``, against ``decode(*encode(y, u))`` of the same codec."""
+    import torch
+    from repro_torch.compress import FUSED_ROTATE_MAX_DIM, make_codec
+    from repro_torch.compress.rotation import rotate
+    from repro_torch.compress.wire import unpack_int4
+    from repro_torch.kernels import qsgd as K
+
+    dev = deltas.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    msgs = [("10 worker deltas", deltas)] + [
+        (f"n={n}", torch.randn(n, generator=gen, device=dev) * 3.0)
+        for n in PAYLOAD_NS]
+    cases = []
+    want = dict.fromkeys(read_launches(), 0)
+    for kind in ("qsgd", "rotated"):
+        for wire, s in (("int4", 7), ("int8", 127)):
+            codec = make_codec(s, wire=wire, kind=kind, backend="cuda")
+            for name, y in msgs:
+                m = codec.padded_dim(y.shape[-1])
+                u = torch.rand(*y.shape[:-1], m, generator=gen, device=dev)
+                cases.append((kind, wire, s, codec, name, y, u, m))
+                # the reference's dispatch: int4 -> the fused encodes,
+                # everything else -> encode (rotate +) K1/K2
+                if wire != "int4":
+                    want["qsgd_sumsq"] += 1
+                    want["qsgd_quantize"] += 1
+                elif kind == "rotated" and m <= FUSED_ROTATE_MAX_DIM:
+                    want["fused_rotate_encode"] += 1
+                else:
+                    want["fused_encode"] += 1
+    reset_launches()
+    out = []
+    for kind, wire, s, codec, name, y, u, m in cases:
+        payload, norm, nbits = codec.encode_payload(y, u)
+        out.append((payload, norm, nbits,
+                    codec.decode_payload(payload, norm, m)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != want:
+        raise AssertionError(f"payload launches {launches} != expected "
+                             f"{want}")
+    for name in ("fused_encode", "fused_rotate_encode"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the payload path")
+    log(f"[payload] {len(cases)} payloads, launches {launches}")
+
+    for (kind, wire, s, codec, name, y, u, m), (payload, norm, nbits, dec) \
+            in zip(cases, out):
+        rows = y.numel() // y.shape[-1]
+        bits = 8 * ((m + 1) // 2) if wire == "int4" else 8 * m
+        if nbits != rows * bits:
+            raise AssertionError(f"{kind}/{wire} {name}: nbits {nbits} != "
+                                 f"{rows} x {bits}")
+        # the kernels that made this payload against their plain versions
+        # on the same message and u: K1's (or K4's, K5's) norm within
+        # rtol 1e-6, and the bytes identical to the plain quantize (+ pack)
+        # fed the kernel's norm
+        msg = (rotate(y, codec.seed) if kind == "rotated" else y)
+        msg, u2 = msg.reshape(rows, m), u.reshape(rows, m)
+        norm2 = norm.reshape(rows)
+        torch.testing.assert_close(norm2, K.sumsq_plain(msg, s)[1],
+                                   rtol=1e-6, atol=0)
+        if not torch.equal(payload.reshape(rows, -1), payload_given_norm(
+                msg, u2, s, norm2, wire == "int4")):
+            raise AssertionError(f"{kind}/{wire} {name}: payload differs "
+                                 f"from the plain versions' given the "
+                                 f"kernel's norm")
+        lvl_e, norm_e = codec.encode(y, u)
+        lvl = unpack_int4(payload, m) if wire == "int4" else payload
+        k5 = wire == "int4" and kind == "rotated" and \
+            m <= FUSED_ROTATE_MAX_DIM
+        flips = (lvl.to(torch.int32) - lvl_e.to(torch.int32)).abs()
+        nflip = int((flips > 0).sum())
+        if not k5:
+            # K4's norm is K1's bit for bit, and int8 payloads are encode's
+            if not (torch.equal(norm, norm_e) and nflip == 0
+                    and torch.equal(dec, codec.decode(lvl_e, norm_e))):
+                raise AssertionError(f"{kind}/{wire} {name}: payload differs "
+                                     f"from encode ({nflip} levels)")
+        else:
+            # K5 sums the norm in another order than K1: within 2 ulp, and
+            # a level may flip where u falls within that ulp of its fraction
+            torch.testing.assert_close(norm, norm_e, rtol=2.4e-7, atol=0)
+            if int(flips.max()) > 1 or nflip > max(1, m // 10000):
+                raise AssertionError(f"{kind}/{wire} {name}: {nflip} levels "
+                                     f"differ from encode's")
+            # the same levels decoded with encode's norm: the norm's ulp,
+            # carried through the unrotation's butterflies, whose rounding
+            # scales with the message's largest value
+            ref = codec.decode(lvl, norm_e)
+            torch.testing.assert_close(dec, ref, rtol=1e-6,
+                                       atol=1e-6 * float(ref.abs().max()))
+        if dec.shape[-1] != m or not bool(torch.isfinite(dec).all()):
+            raise AssertionError(f"{kind}/{wire} {name}: bad decode "
+                                 f"{tuple(dec.shape)}")
+        log(f"[payload] {kind}/{wire} s={s} {name}: m={m} nbits={nbits} "
+            f"{'K5' if k5 else 'K4' if wire == 'int4' else 'K1/K2'}, "
+            f"{nflip} level flips")
+    return {"launches": launches}
 
 
 def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:
@@ -359,18 +780,28 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     kern = phase_kernels()
+    fused = phase_fused_kernels("cuda")
     path = phase_main_path()
+    wavg = phase_gqfedwavg(path["task"], path["consts"])
+    pay = phase_payload(wavg["deltas"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    # launches: each kernel's count on the path that carries it (K1-K3 the
+    # quickstart run, K4/K5 the payload path), all three paths beside it
+    by_path = {"genqsgd": path["launches"], "gqfedwavg": wavg["launches"],
+               "payload": pay["launches"]}
+    timed = {**kern["main"], **fused["main"]}
+    worst = {**kern["worst"], **fused["worst"]}
     kernels = []
-    for name, (ms, plain, lib, (bnd, by)) in kern["main"].items():
+    for name, (ms, plain, lib, (bnd, by)) in timed.items():
+        home = "payload" if name.startswith("fused") else "genqsgd"
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/qsgd.cu",
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": path["launches"][name],
-            "max_abs_err": kern["worst"][name],
+            "launches": by_path[home][name],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            "max_abs_err": worst[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -8,10 +8,11 @@ loop as two calls:
     plan   = scenario.optimize()          # GIA/CGP -> frozen Plan
     report = scenario.run(plan, task)     # train -> RunReport vs predictions
 
-This slice carries family ``genqsgd`` with full participation and no
-faults, the scalar NumPy solver and the reference runtime; the rest of the
-JAX package's Scenario raises :class:`NotImplementedError` naming its item
-in ROADMAP.md.
+The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
+``pr``, ``gqfedwavg`` and registered variants) with full participation and
+no faults, the scalar NumPy solver and the reference runtime; the rest of
+the JAX package's Scenario raises :class:`NotImplementedError` naming its
+item in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -58,9 +59,7 @@ class Scenario:
     faults: object = "none"               # repro.faults key or model
 
     def __post_init__(self):
-        fam = resolve(self.family)        # unknown names fail here, loudly
-        if fam.key != "genqsgd":
-            raise not_ported(f"algorithm family {fam.key!r}", 4)
+        resolve(self.family)              # unknown names fail here, loudly
         if getattr(self.sampling, "key", self.sampling) != "full":
             raise not_ported(f"sampling model {self.sampling!r}", 6)
         if getattr(self.faults, "key", self.faults) != "none":

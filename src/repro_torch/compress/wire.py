@@ -1,6 +1,5 @@
-"""Wire formats and cost-model-consistent bit accounting (pricing only:
-the int4 nibble pack waits for the fused encode kernel, ROADMAP.md Queue 2,
-K4).
+"""Wire formats, cost-model-consistent bit accounting, and the int4 nibble
+pack of the "int4" payload.
 
 A *codec* decides how a tensor becomes (levels, norm); a *wire format*
 decides how those travel and therefore how many bits one message costs.
@@ -38,11 +37,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import torch
+
 from . import elias as E
 
 __all__ = [
     "WIRE_FORMATS", "RUNTIME_WIRES", "wire_max_s", "level_bits",
-    "wire_bits",
+    "wire_bits", "pack_int4", "unpack_int4",
 ]
 
 #: every format the bit model prices
@@ -120,3 +121,28 @@ def wire_bits(s: Optional[int], dim: int, wire: str = "packed",
                            n_buckets * E.expected_code_bits(s, bucket))
         return 32.0 * n_buckets + lvl_bits
     return 32.0 * n_buckets + dim * level_bits(s, wire)
+
+
+# ---------------------------------------------------------------------------
+# int4 packing: two signed nibbles per int8 byte (levels in [-7, 7]), along
+# the last dimension (one message per row; a 1-D input packs exactly as the
+# JAX package's flat ``pack_int4``)
+# ---------------------------------------------------------------------------
+def pack_int4(levels: torch.Tensor) -> torch.Tensor:
+    """Pack int levels in [-7, 7] into ceil(n/2) bytes per row, lo nibble
+    first; an odd row's last high nibble is 0.  (..., n) -> (..., ceil(n/2))
+    int8."""
+    v = levels.to(torch.int32) & 0x0F
+    if v.shape[-1] % 2:
+        v = torch.nn.functional.pad(v, (0, 1))
+    return (v[..., 0::2] | (v[..., 1::2] << 4)).to(torch.uint8) \
+        .view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (..., ceil(n/2)) bytes -> (..., n) int8
+    levels, nibbles above 7 sign-extended."""
+    p = packed.to(torch.int32) & 0xFF
+    nib = torch.stack([p & 0x0F, p >> 4], dim=-1) \
+        .reshape(*p.shape[:-1], -1)[..., :n]
+    return torch.where(nib > 7, nib - 16, nib).to(torch.int8)

@@ -23,63 +23,9 @@
 // multiply/subtract unfused (it is held bitwise against the plain version),
 // and K3 spells out __fmul_rn/__fadd_rn so nvcc cannot contract into an FMA
 // that the plain version does not do.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qsgd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Fixed-order block sum (warp shuffles, then warp 0 over the warp sums);
-// the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_part[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) warp_part[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < kThreads / 32) ? warp_part[lane] : 0.f;
-  if (warp == 0) v = warp_sum(v);
-  return v;
-}
-
-// K1, stage 1: grid (P, rows).  Block (p, r) sums y[r, i]^2 over a grid
-// stride of 16-byte loads; the row is peeled to 16-byte alignment first
-// (rows of odd length start mid-vector) and its tail done scalar.
-__global__ void __launch_bounds__(kThreads)
-sumsq_partial_kernel(const float* __restrict__ y, long long n,
-                     float* __restrict__ partials) {
-  const float* row = y + (long long)blockIdx.y * n;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
-  if (head > n) head = n;
-  float acc = 0.f;
-  if (tid < head) {
-    const float v = row[tid];
-    acc += v * v;
-  }
-  const float4* body = reinterpret_cast<const float4*>(row + head);
-  const long long nvec = (n - head) >> 2;
-  for (long long i = tid; i < nvec; i += stride) {
-    const float4 v = body[i];
-    acc += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-  }
-  const long long t = head + (nvec << 2) + tid;
-  if (t < n) {
-    const float v = row[t];
-    acc += v * v;
-  }
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
-}
 
 // K1, stage 2: one block per row adds its P partials in a fixed order,
 // then norm = sqrt(ss), safe = norm > 0 ? norm : 1, inv = s / safe — the
@@ -89,16 +35,10 @@ __global__ void __launch_bounds__(kThreads)
 sumsq_finish_kernel(const float* __restrict__ partials, int P, float s,
                     float* __restrict__ ss, float* __restrict__ norm,
                     float* __restrict__ inv) {
-  const float* p = partials + (long long)blockIdx.x * P;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) acc += p[i];
-  const float tot = block_sum(acc);
+  const float tot = sum_partials(partials + (long long)blockIdx.x * P, P);
   if (threadIdx.x == 0) {
-    const float nr = sqrtf(tot);
-    const float safe = nr > 0.f ? nr : 1.f;
     ss[blockIdx.x] = tot;
-    norm[blockIdx.x] = nr;
-    inv[blockIdx.x] = s / safe;
+    inv[blockIdx.x] = inv_scale(tot, s, norm + blockIdx.x);
   }
 }
 
@@ -114,14 +54,8 @@ quantize_kernel(const float* __restrict__ y, const float* __restrict__ u,
   const float iv = inv[blockIdx.y];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float yv = y[off + i];
-    const float scaled = __fmul_rn(fabsf(yv), iv);
-    const float base = floorf(scaled);
-    const float lvl = base + (u[off + i] < __fsub_rn(scaled, base) ? 1.f : 0.f);
-    const float sgn = yv > 0.f ? 1.f : (yv < 0.f ? -1.f : 0.f);
-    out[off + i] = static_cast<T>(static_cast<int>(sgn * lvl));
-  }
+       i += stride)
+    out[off + i] = static_cast<T>(qsgd_level(y[off + i], u[off + i], iv));
 }
 
 // K3: out = x + (gamma * lvl) * scale with scale = norm / s, the TPU
@@ -139,12 +73,6 @@ dequant_apply_kernel(const float* __restrict__ x, const T* __restrict__ lvl,
     const float l = static_cast<float>(lvl[i]);
     out[i] = __fadd_rn(x[i], __fmul_rn(__fmul_rn(gamma, l), scale));
   }
-}
-
-unsigned int grid_x(long long n, long long per_block, unsigned int cap) {
-  long long g = (n + per_block - 1) / per_block;
-  if (g < 1) g = 1;
-  return (unsigned int)(g < cap ? g : cap);
 }
 
 template <typename T>

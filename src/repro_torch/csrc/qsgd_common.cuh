@@ -1,0 +1,104 @@
+// Pieces shared by the QSGD kernels (qsgd.cu: K1-K3) and the one-pass
+// encodes (fused_encode.cu: K4, K5): the fixed-order block sum, K1's
+// per-block partial sums of squares, and the stochastic level of one
+// coordinate.  Each .cu that includes this builds into its own library.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Fixed-order block sum for a block of kBlock threads (warp shuffles, then
+// warp 0 over the warp sums); the result is valid in thread 0.  Uses its
+// own shared scratch, so a kernel calls it once.
+template <int kBlock>
+__device__ __forceinline__ float block_sum(float v) {
+  static_assert(kBlock % 32 == 0 && kBlock <= 1024, "block size");
+  __shared__ float warp_part[kBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  v = (threadIdx.x < kBlock / 32) ? warp_part[lane] : 0.f;
+  if (warp == 0) v = warp_sum(v);
+  return v;
+}
+
+// K1, stage 1: grid (P, rows).  Block (p, r) sums y[r, i]^2 over a grid
+// stride of 16-byte loads; the row is peeled to 16-byte alignment first
+// (rows of odd length start mid-vector) and its tail done scalar.
+__global__ void __launch_bounds__(kThreads)
+sumsq_partial_kernel(const float* __restrict__ y, long long n,
+                     float* __restrict__ partials) {
+  const float* row = y + (long long)blockIdx.y * n;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
+  if (head > n) head = n;
+  float acc = 0.f;
+  if (tid < head) {
+    const float v = row[tid];
+    acc += v * v;
+  }
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  const long long nvec = (n - head) >> 2;
+  for (long long i = tid; i < nvec; i += stride) {
+    const float4 v = body[i];
+    acc += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  const long long t = head + (nvec << 2) + tid;
+  if (t < n) {
+    const float v = row[t];
+    acc += v * v;
+  }
+  const float s = block_sum<kThreads>(acc);
+  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
+// The sum of one row's P partials, in a fixed order (thread i takes
+// partials i, i + kThreads, ...; then the block sum); valid in thread 0.
+// K1's finish and K4's quantize both reduce this way, so their norms agree
+// bit for bit.
+__device__ __forceinline__ float sum_partials(const float* __restrict__ p, int P) {
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < P; i += kThreads) acc += p[i];
+  return block_sum<kThreads>(acc);
+}
+
+// The stochastic level sign(y) * (floor(|y| inv) + [u < frac]) of one
+// coordinate, in the TPU kernel's op order (qsgd.py:67-73); multiply and
+// subtract spelled out so nvcc cannot contract them.  The level is an exact
+// small integer in float, so its conversion to int is exact.
+__device__ __forceinline__ int qsgd_level(float y, float u, float inv) {
+  const float scaled = __fmul_rn(fabsf(y), inv);
+  const float base = floorf(scaled);
+  const float lvl = base + (u < __fsub_rn(scaled, base) ? 1.f : 0.f);
+  const float sgn = y > 0.f ? 1.f : (y < 0.f ? -1.f : 0.f);
+  return static_cast<int>(sgn * lvl);
+}
+
+// norm = sqrt(ss), safe = norm > 0 ? norm : 1, inv = s / safe: the order of
+// the TPU fused encode (qsgd.py:184-186), with IEEE sqrtf and '/'.
+__device__ __forceinline__ float inv_scale(float ss, float s, float* norm) {
+  const float nr = sqrtf(ss);
+  *norm = nr;
+  return s / (nr > 0.f ? nr : 1.f);
+}
+
+unsigned int grid_x(long long n, long long per_block, unsigned int cap) {
+  long long g = (n + per_block - 1) / per_block;
+  if (g < 1) g = 1;
+  return (unsigned int)(g < cap ? g : cap);
+}
+
+}  // namespace

@@ -1,11 +1,13 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled on first use into
-``<repo>/build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source rebuilds and a stale library is never loaded)
+``<repo>/build/lib<name>-<hash>.so`` (the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source rebuilds
+and a stale library is never loaded)
 for ``sm_90a``, with a plain C interface: pointers and the CUDA stream go
-in as ``c_void_p``, every entry point returns ``cudaGetLastError()``.
-Nothing here runs at import time.
+in as ``c_void_p``, every entry point returns ``cudaGetLastError()``, and
+:func:`launch` raises on anything but 0.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "build"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "build",
+           "launch"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -29,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+_FNS: dict = {}
 
 
 def _nvcc() -> str:
@@ -49,8 +53,11 @@ def build(name: str) -> tuple:
     -> ``(path, seconds, compiler_output)``; seconds is 0.0 when nothing
     was compiled."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path, 0.0, ""
@@ -75,3 +82,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _LIBS[name] = lib
         return lib
+
+
+def launch(lib: str, name: str, argtypes, *args) -> None:
+    """Call the entry point ``name`` of ``csrc/<lib>.cu`` with ``args`` on
+    PyTorch's current stream (``argtypes`` exclude the stream); a CUDA
+    error at launch, such as a refused launch configuration, raises."""
+    import torch
+    fn = _FNS.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]   # + the stream
+        fn.restype = ctypes.c_int
+        _FNS[(lib, name)] = fn
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -30,6 +30,8 @@ import ctypes
 
 import torch
 
+from . import build
+
 __all__ = ["LAUNCHES", "reset_launches", "level_dtype", "sumsq_blocks",
            "qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply",
            "sumsq_plain", "quantize_plain", "dequant_apply_plain"]
@@ -48,7 +50,6 @@ _SIGS = {
     "qsgd_dequant_apply_i8": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
     "qsgd_dequant_apply_i32": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
 }
-_FNS: dict = {}
 
 
 def reset_launches() -> None:
@@ -65,17 +66,6 @@ def sumsq_blocks(n: int) -> int:
     """K1's stage-1 blocks per row: about 16 floats a thread, at most 1024
     (a function of n alone, so the reduction order never changes)."""
     return max(1, min(1024, -(-n // (_THREADS * 16))))
-
-
-def _fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        from .build import load
-        fn = getattr(load("qsgd"), name)
-        fn.argtypes = _SIGS[name] + [_PTR]   # + the stream
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
 
 
 def _on_card(*tensors) -> bool:
@@ -97,10 +87,7 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int):
 
 
 def _launch(name: str, *args):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _fn(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    build.launch("qsgd", name, _SIGS[name], *args)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,8 @@ from repro.core.genqsgd import flatten_like as r_flatten
 from repro.core.step_rules import ConstantRule as RConstant
 import repro_torch
 from repro_torch.api import EdgeSystem, MNISTTask, Plan, Scenario
+from repro_torch.compress import (encode_fused, encode_rotated_fused,
+                                  make_codec)
 from repro_torch.core.convergence import MLProblemConstants
 from repro_torch.core.genqsgd import GenQSGD, GenQSGDConfig, flatten_like
 from repro_torch.core.step_rules import ConstantRule
@@ -151,15 +153,16 @@ def test_short_run_matches_reference_spread(tasks):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"family": "gqfedwavg"}, 4),
-    ({"family": "pm"}, 4),
     ({"sampling": "uniform"}, 6),
     ({"faults": "edge"}, 6),
+    ({"system": dataclasses.replace(EdgeSystem.paper_sec_vii(), q_dim=4096)},
+     2),
 ])
 def test_scenario_outside_the_slice_raises(kw, item):
+    kw = {"system": EdgeSystem.paper_sec_vii(), **kw}
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
-                 T_max=1e5, C_max=0.25, **kw)
+        Scenario(consts=MLProblemConstants(**CONSTS), T_max=1e5, C_max=0.25,
+                 **kw)
 
 
 @pytest.mark.parametrize("call,item", [
@@ -177,14 +180,34 @@ def test_entry_points_outside_the_slice_raise(call, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"bucket": 4096}, 2), ({"codec_kind": "rotated"}, 2),
-    ({"momentum": 0.5}, 5), ({"agg_weights": (1.0,) * N}, 5),
-    ({"sampling_S": 4}, 6), ({"faults": object()}, 6),
+    ({"bucket": 4096}, 2), ({"sampling_S": 4}, 6), ({"faults": object()}, 6),
 ])
 def test_runtime_outside_the_slice_raises(kw, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         GenQSGDConfig(K0=1, Kn=(1,) * N, B=1, step_rule=ConstantRule(0.1),
                       **kw)
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: make_codec(7, bucket=4096), 2),
+    (lambda: make_codec(7, wire="elias").encode_payload(
+        torch.zeros(8), torch.zeros(8)), 9),
+])
+def test_codecs_outside_the_slice_raise(call, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        call()
+
+
+@pytest.mark.parametrize("s,pack,match", [(8, True, "s <= 7"),
+                                          (128, False, "s <= 127")])
+def test_fused_encode_refuses_s_outside_its_container(s, pack, match):
+    """The one-pass encodes carry int8 levels and int4 nibbles, as the JAX
+    package's: no wider container."""
+    y = torch.zeros(1, 8)
+    with pytest.raises(ValueError, match=match):
+        encode_fused(y, s, y, pack=pack)
+    with pytest.raises(ValueError, match=match):
+        encode_rotated_fused(y, s, y, 0, pack=pack)
 
 
 def test_no_quiet_cpu_fallback(monkeypatch):
