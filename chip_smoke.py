@@ -5,9 +5,9 @@ in PERF.md).
     python3 chip_smoke.py
 
 Phases, each of which fails the script on error:
-  1. build: nvcc compiles ``src/repro_torch/csrc/*.cu`` (``qsgd.cu`` and
-     ``fused_encode.cu``) for sm_90a into ``build/`` (one nvcc per source,
-     all started together);
+  1. build: nvcc compiles ``src/repro_torch/csrc/*.cu`` (``qsgd.cu``,
+     ``fused_encode.cu`` and ``flash_decode.cu``) for sm_90a into
+     ``build/`` (one nvcc per source, all started together);
   2. kernels vs plain: every QSGD kernel against its plain PyTorch version
      on the card.  K1-K3 at the main paths' shapes (10 and 1 rows of
      D = 101,770 for GenQSGD, of d' = 2^17 for GQFedWAvg) and at a
@@ -44,7 +44,28 @@ Phases, each of which fails the script on error:
      counters read around the payload calls alone; each payload is held
      against the plain versions on the same y and u (the norm within
      rtol 1e-6, the bytes identical given the kernel's norm) and against
-     ``decode(*encode(y, u))``.
+     ``decode(*encode(y, u))``;
+  6. flash decode (K6) against its plain version on the card, within
+     rtol/atol 1e-5 (both accumulate in f32; a bf16 output within one bf16
+     ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
+     heads, G = 2, dh = 128) over bf16 and f32 caches, a gemma3-width
+     shape (dh 256, 4 kv heads) under a 1024-token window mask, G in
+     {1, 7, 16}, dh 64, ragged C (1000, 777), one valid token and an
+     all-masked row; then its time at the serving shape beside its byte
+     bound, its plain version and ``scaled_dot_product_attention``;
+  7. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
+     max_len=4096)`` at full width (28 layers, d_model 2048, vocab
+     151,936; f32 weights from ``lm.init_params`` with a seeded generator,
+     bf16 cache) serves 16 requests (prompts of 256-2048 tokens, 32 new
+     tokens each, greedy) through ``run``, with the counters set to 0 just
+     before and read just after: K6 launches once per layer per decode
+     step, nothing else launches; prints prefill ms per request, ms per
+     decode step, tokens/s and, over 10 profiled decode steps, K6's share
+     of device time and the device's busy share.  The same model cut to 2
+     layers then prefills a 64-token prompt and decodes 4 tokens on the
+     card and on the CPU (plain versions) with the same weights: logits
+     within 1e-3 and equal greedy tokens over an f32 cache, logits within
+     3e-2 over the bf16 cache.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -52,8 +73,11 @@ JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,12 +110,36 @@ FUSED_S = ((7, True), (127, False))          # (s, pack)
 #: card-vs-CPU round of phase 4
 SMOKE_WEIGHTS = (4, 4, 2, 2, 1, 1, 1, 1, 1, 1)
 SMOKE_MOMENTUM = 0.9
+#: the serving run of phase 7: qwen3-1.7b at full width, 8 slots of 4096
+#: positions, 16 requests of 256-2048 prompt tokens and 32 new tokens
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
+#: K6's check shapes (name, B, C, KV, G, dh, q type, cache type, mask):
+#: the serving shape first; masks "prefix" (a random length valid per row,
+#: as a cache filled from position 0), "window" (a 1024-token band before a
+#: random query position), "one" (one valid entry a row), "none-row0" (row
+#: 0 fully masked, the others prefixes)
+K6_SHAPES = (
+    ("serving", 8, 4096, 8, 2, 128, "f32", "bf16", "prefix"),
+    ("serving f32 cache", 8, 4096, 8, 2, 128, "f32", "f32", "prefix"),
+    ("serving bf16 q", 8, 4096, 8, 2, 128, "bf16", "bf16", "prefix"),
+    ("gemma3 width", 8, 4096, 4, 2, 256, "f32", "bf16", "window"),
+    ("G=16", 2, 4096, 8, 16, 128, "f32", "bf16", "prefix"),
+    ("G=7 ragged", 3, 1000, 4, 7, 128, "f32", "bf16", "prefix"),
+    ("G=1 dh=64 ragged f32", 4, 777, 16, 1, 64, "f32", "f32", "prefix"),
+    ("one valid token", 8, 4096, 8, 2, 128, "f32", "bf16", "one"),
+    ("all-masked row", 8, 4096, 8, 2, 128, "f32", "bf16", "none-row0"),
+)
+K6_TOL = 1e-5
+K6_WINDOW = 1024
 REPLACES = {
     "qsgd_sumsq": "src/repro/kernels/qsgd.py:143",
     "qsgd_quantize": "src/repro/kernels/qsgd.py:82",
     "qsgd_dequant_apply": "src/repro/kernels/qsgd.py:109",
     "fused_encode": "src/repro/kernels/qsgd.py:213",
     "fused_rotate_encode": "src/repro/kernels/qsgd.py:280",
+    "flash_decode": "src/repro/kernels/flash_decode.py:81",
 }
 SOURCES = {
     "qsgd_sumsq": "src/repro_torch/csrc/qsgd.cu",
@@ -99,6 +147,7 @@ SOURCES = {
     "qsgd_dequant_apply": "src/repro_torch/csrc/qsgd.cu",
     "fused_encode": "src/repro_torch/csrc/fused_encode.cu",
     "fused_rotate_encode": "src/repro_torch/csrc/fused_encode.cu",
+    "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
 }
 
 
@@ -164,6 +213,17 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+def demangle(name: str) -> str:
+    """A kernel's C++ name without its argument list, where ``c++filt`` is
+    found; else the mangled name."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    out = subprocess.run([tool, name], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    return re.sub(r"\(.*", "", out.replace("(anonymous namespace)::", ""))
+
+
 def phase_build():
     from repro_torch.kernels import build
     sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
@@ -174,9 +234,24 @@ def phase_build():
     for name, (path, secs, out) in zip(sources, results):
         log(f"[build] {name}: {os.path.relpath(path, ROOT)} "
             f"(nvcc {secs:.2f} s)")
+        # ptxas -v: "Function properties for <kernel>", then its spills,
+        # then "Used N registers"
+        regs, spills, func = [], [], ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Function properties for" in line:
+                func = line.split("for", 1)[1].strip()
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append((func, m.group(0)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.append(int(m.group(1)))
+        if regs:
+            log(f"[build]   {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                f"registers, {len(spills)} with spills")
+        for func, what in spills:
+            log(f"[build]   spills: {demangle(func)} ({what})")
     log(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
 
 
@@ -273,16 +348,19 @@ def phase_kernels() -> dict:
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import fused_encode as FE
     from repro_torch.kernels import qsgd as K
     K.reset_launches()
     FE.reset_launches()
+    FD.reset_launches()
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import fused_encode as FE
     from repro_torch.kernels import qsgd as K
-    return {**K.LAUNCHES, **FE.LAUNCHES}
+    return {**K.LAUNCHES, **FE.LAUNCHES, **FD.LAUNCHES}
 
 
 def payload_given_norm(y, u, s, norm, pack: bool):
@@ -489,7 +567,7 @@ def phase_main_path() -> dict:
     want = {"qsgd_sumsq": rounds * (workers + server),
             "qsgd_quantize": rounds * (workers + server),
             "qsgd_dequant_apply": rounds * server,
-            "fused_encode": 0, "fused_rotate_encode": 0}
+            "fused_encode": 0, "fused_rotate_encode": 0, "flash_decode": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
     for name in ("qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply"):
@@ -532,8 +610,6 @@ def phase_gqfedwavg(task, consts, max_rounds: int = 200,
                     profile: bool = True) -> dict:
     """Phase 4: the GQFedWAvg closed loop at full width on ``task``'s
     device, then one round on it against the same round on the CPU."""
-    import dataclasses
-
     import numpy as np
     import torch
     from repro_torch.api import EdgeSystem, MNISTTask, Scenario
@@ -576,7 +652,7 @@ def phase_gqfedwavg(task, consts, max_rounds: int = 200,
     want = {"qsgd_sumsq": rounds * (workers + 1),
             "qsgd_quantize": rounds * (workers + 1),
             "qsgd_dequant_apply": 0, "fused_encode": 0,
-            "fused_rotate_encode": 0}
+            "fused_rotate_encode": 0, "flash_decode": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
     x0 = flatten_like(task.init_params(
@@ -730,6 +806,284 @@ def phase_payload(deltas) -> dict:
     return {"launches": launches}
 
 
+def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
+    """Phase 6's inputs on ``dev`` from ``gen``: q (B, KV, G, dh), k/v
+    (B, C, KV, dh), a bool (B, C) mask of the named kind."""
+    import torch
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    q = (torch.randn(B, KV, G, dh, generator=gen, device=dev) * 2).to(
+        types[q_type])
+    k = torch.randn(B, C, KV, dh, generator=gen, device=dev).to(
+        types[kv_type])
+    v = torch.randn(B, C, KV, dh, generator=gen, device=dev).to(
+        types[kv_type])
+    cpos = torch.arange(C, device=dev).expand(B, C)
+    lens = torch.randint(1, C + 1, (B, 1), generator=gen, device=dev)
+    if mask == "window":
+        q_pos = torch.randint(0, C, (B, 1), generator=gen, device=dev)
+        valid = (cpos <= q_pos) & (cpos > q_pos - K6_WINDOW)
+    elif mask == "one":
+        valid = cpos == lens - 1
+    else:
+        valid = cpos < lens
+        if mask == "none-row0":
+            valid[0] = False
+    return q, k, v, valid
+
+
+def phase_flash_decode(dev) -> dict:
+    """Phase 6: K6 against its plain version on ``dev`` at every shape of
+    K6_SHAPES, then (on the card) its times at the serving shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as FD
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:
+        q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
+        out = FD.flash_decode(q, k, v, valid)
+        ref = FD.flash_decode_plain(q, k, v, valid)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if out.dtype != q.dtype or out.shape != q.shape:
+            raise AssertionError(f"K6 {name}: output {out.dtype} "
+                                 f"{tuple(out.shape)}")
+        # f32 accumulation on both sides, in another order; a bf16 output
+        # is the f32 result rounded, so one bf16 ulp apart at most
+        rtol = K6_TOL if qt == "f32" else 2.0 ** -7
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=K6_TOL)
+        err = float((out.float() - ref.float()).abs().max())
+        if mask == "one":          # the one valid v row
+            idx = valid.float().argmax(1)
+            want = v[torch.arange(B, device=dev), idx].float()[:, :, None]
+            torch.testing.assert_close(out.float(), want.expand_as(out),
+                                       rtol=K6_TOL, atol=K6_TOL)
+        if mask == "none-row0":    # uniform weights: the mean of v
+            want = v[0].float().mean(0)[:, None].expand_as(out[0])
+            torch.testing.assert_close(out[0].float(), want, rtol=K6_TOL,
+                                       atol=K6_TOL)
+        if name == "serving":
+            worst = err
+        log(f"[k6] {name}: B={B} C={C} KV={KV} G={G} dh={dh} q {qt} cache "
+            f"{kvt} mask {mask}: max abs err {err:.3g}")
+    log("[k6] flash decode agrees with its plain version at every shape")
+    if dev.type != "cuda":
+        return {"worst": {"flash_decode": worst}, "main": {}}
+
+    # times at the serving shape (q f32, bf16 cache)
+    _, B, C, KV, G, dh, qt, kvt, mask = K6_SHAPES[0]
+    q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
+    kv_bytes = 2 * k.numel() * k.element_size()
+    nbytes = kv_bytes + 2 * q.numel() * 4 + valid.numel()
+    bnd, by = bound_ms(nbytes, 4 * B * KV * G * C * dh)
+    # the yardstick: one SDPA call, (B, heads, 1, dh) against (B, KV, C, dh)
+    # views of the cache, a boolean mask; SDPA takes one type for q, k, v,
+    # so q is cast to the cache's type beforehand
+    qs = q.to(k.dtype).reshape(B, KV * G, 1, dh)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    ms4 = valid[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms4,
+                                       enable_gqa=True)
+        lib = (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=ms4, enable_gqa=True))
+        lib_what = "sdpa(enable_gqa=True), bf16 q"
+    except TypeError:              # no enable_gqa: kv heads expanded first
+        ke = ks.repeat_interleave(G, dim=1)
+        ve = vs.repeat_interleave(G, dim=1)
+        lib = (lambda: F.scaled_dot_product_attention(qs, ke, ve,
+                                                      attn_mask=ms4))
+        lib_what = "sdpa on kv heads expanded G times, bf16 q"
+    def kern():
+        return FD.flash_decode(q, k, v, valid)
+
+    def plain():
+        return FD.flash_decode_plain(q, k, v, valid)
+
+    ms, pl, lb = device_ms(kern), device_ms(plain), device_ms(lib)
+    log(f"[time] flash_decode B={B} C={C} KV={KV} G={G} dh={dh} q {qt} "
+        f"cache {kvt}: kernel {ms * 1e3:.2f} us (eager call "
+        f"{eager_ms(kern) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, library "
+        f"{lb * 1e3:.2f} us ({lib_what}), bound {bnd * 1e3:.2f} us ({by}; "
+        f"K/V alone {kv_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), "
+        f"{bnd / ms * 100:.1f}% of the bound")
+    for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:
+        if name not in ("gemma3 width", "G=16"):
+            continue
+        q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
+        t = device_ms(lambda: FD.flash_decode(q, k, v, valid))
+        b2, _ = bound_ms(2 * k.numel() * k.element_size()
+                         + 2 * q.numel() * 4 + valid.numel(),
+                         4 * B * KV * G * C * dh)
+        log(f"[time] flash_decode {name}: kernel {t * 1e3:.2f} us, bound "
+            f"{b2 * 1e3:.2f} us")
+    return {"worst": {"flash_decode": worst},
+            "main": {"flash_decode": (ms, pl, lb, (bnd, by))}}
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
+                prompt: tuple, new_tokens: int, check_cfg) -> dict:
+    """Phase 7: ``ServeEngine(...).run(requests)`` for ``cfg`` on ``dev``,
+    counters read around the run; then ``check_cfg`` on ``dev`` against
+    the CPU (a prompt of 64 tokens and 4 decode steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    sync()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # ArchConfig.param_count leaves out the final norm and the qk norms
+    norms = cfg.d_model + cfg.n_layers * 2 * cfg.d_head * cfg.qk_norm
+    if n_params != cfg.param_count() + norms:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()} + {norms} of norms")
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {n_params} parameters (f32) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng = ServeEngine(params, cfg, slots=slots, max_len=max_len, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n_requests)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=new_tokens) for n in lens]
+    # warm-up (cuBLAS handles, the kernels' first load), not counted
+    eng.run([Request(prompt=rng.integers(0, cfg.vocab, 64).astype(np.int32),
+                     max_new_tokens=3)])
+    eng.stats.update(prefills=0, prefill_s=0.0, decode_steps=0,
+                     decode_s=0.0)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = eng.stats
+    n_attn = sum(c for t, c in cfg.segments)
+    want = dict.fromkeys(launches, 0)
+    want["flash_decode"] = st["decode_steps"] * n_attn
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want} "
+                             f"({st['decode_steps']} decode steps x "
+                             f"{n_attn} layers x 1 a call)")
+    if launches["flash_decode"] == 0:
+        raise AssertionError("flash_decode never launched on the serving "
+                             "path")
+    for r in reqs:
+        if not r.done or r.failed or len(r.output) != new_tokens or \
+                not all(0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"request not served: done={r.done} "
+                                 f"failed={r.failed} output={r.output}")
+    tokens = sum(len(r.output) for r in reqs)
+    ms_step = st["decode_s"] / st["decode_steps"] * 1e3
+    ms_prefill = st["prefill_s"] / st["prefills"] * 1e3
+    log(f"[serve] {n_requests} requests (prompts {int(lens.min())}-"
+        f"{int(lens.max())}, {int(lens.sum())} tokens) on {slots} slots x "
+        f"{max_len}: {st['prefills']} prefills, {st['decode_steps']} decode "
+        f"steps, launches {launches}")
+    log(f"[serve] prefill {ms_prefill:.3f} ms per request "
+        f"({st['prefill_s'] / lens.sum() * 1e6:.2f} us per prompt token), "
+        f"decode {ms_step:.3f} ms per step, {tokens} tokens in {wall:.3f} s "
+        f"= {tokens / wall:.1f} tokens/s (decode alone "
+        f"{st['decode_steps'] * slots / st['decode_s']:.1f} tokens/s at "
+        f"{slots} slots)")
+    if dev.type == "cuda":
+        profile_decode(eng, cfg, rng, slots)
+
+    # the same model cut in depth, on the card against the CPU
+    cparams = lm.init_params(check_cfg,
+                             torch.Generator(device=dev).manual_seed(1))
+    sides = (("card", dev, cparams),
+             ("cpu", torch.device("cpu"), tree_to(cparams, "cpu")))
+    toks = torch.as_tensor(rng.integers(0, check_cfg.vocab, (1, 64)))
+    for cache, tol in ((torch.float32, 1e-3), (torch.bfloat16, 3e-2)):
+        logits = {name: [] for name, _, _ in sides}
+        caches = {}
+        for name, where, p in sides:
+            lg, caches[name] = lm.prefill(p, check_cfg,
+                                          {"tokens": toks.to(where)},
+                                          cache_len=128, cache_dtype=cache)
+            logits[name].append(lg.float().cpu())
+        for i in range(4):
+            # both sides decode the card's greedy token
+            tok = logits["card"][-1].argmax(-1)[:, None]
+            pos = torch.full((1, 1), 64 + i)
+            for name, where, p in sides:
+                lg, _ = lm.decode_step(p, check_cfg, tok.to(where),
+                                       caches[name], pos.to(where))
+                logits[name].append(lg.float().cpu())
+        a, b = torch.stack(logits["card"]), torch.stack(logits["cpu"])
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("non-finite logits on the card")
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        if cache == torch.float32 and not same:
+            raise AssertionError("greedy tokens differ between the card and "
+                                 "the CPU")
+        log(f"[serve] {check_cfg.n_layers}-layer {check_cfg.name} ({cache} "
+            f"cache): card vs CPU logits max abs diff "
+            f"{float((a - b).abs().max()):.3g} (tolerance {tol}, |logits| <= "
+            f"{float(b.abs().max()):.3g}), greedy tokens "
+            f"{'equal' if same else 'differ'}")
+    return {"launches": launches, "ms_step": ms_step,
+            "ms_prefill": ms_prefill}
+
+
+def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> None:
+    """Where a decode step's time goes: ``slots`` requests in flight, then
+    torch.profiler over ``steps`` steps: K6's share of device time, the
+    device's busy share of the wall time."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Request
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(slots):
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab, 512).astype(
+            np.int32), max_new_tokens=steps + 5))
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    while eng.step():
+        pass
+    events = log_device_time(prof, wall, steps, "step")
+    k6 = sum(e.self_device_time_total for e in events
+             if "flash_decode" in e.key)
+    busy = sum(e.self_device_time_total for e in events)
+    log(f"[profile] flash_decode {k6 / steps / 1e3:.3f} ms/step = "
+        f"{k6 / max(busy, 1e-9) * 100:.1f}% of device time")
+
+
 def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:
     """Where a round's time goes: torch.profiler over ``rounds`` rounds,
     device time by kernel and the device's busy share of the wall time."""
@@ -746,21 +1100,27 @@ def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:
             x, _ = alg.round(x, *draws, gamma)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_device_time(prof, wall, rounds, "round", top=12)
+
+
+def log_device_time(prof, wall: float, n: int, unit: str, top: int = 10):
+    """Log the device's busy share of ``wall`` over ``n`` units (rounds,
+    steps) and the busiest kernels; -> the device-side events."""
     # device-side events only: an operator's own row also carries the time
     # of the kernels it launched, so summing both would count them twice
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile] {rounds} rounds: wall {wall / rounds * 1e3:.3f} "
-        f"ms/round (profiler on), device busy "
-        f"{busy_us / rounds / 1e3:.3f} ms/round = "
+    log(f"[profile] {n} {unit}s: wall {wall / n * 1e3:.3f} ms/{unit} "
+        f"(profiler on), device busy {busy_us / n / 1e3:.3f} ms/{unit} = "
         f"{busy_us / 1e6 / wall * 100:.1f}% of wall")
     if not events:
         log("[profile] the profiler recorded no device time")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / rounds:9.1f} us/round "
-            f"{e.count / rounds:6.1f} launches/round  {e.key[:90]}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / n:9.1f} us/{unit} "
+            f"{e.count / n:6.1f} launches/{unit}  {e.key[:90]}")
+    return events
 
 
 def main() -> int:
@@ -784,22 +1144,30 @@ def main() -> int:
     path = phase_main_path()
     wavg = phase_gqfedwavg(path["task"], path["consts"])
     pay = phase_payload(wavg["deltas"])
+    k6 = phase_flash_decode("cuda")
+    from repro_torch.models.registry import get_config
+    cfg = get_config(SERVE_ARCH)
+    serve = phase_serve("cuda", cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                        SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+                        dataclasses.replace(cfg, n_layers=2))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     # launches: each kernel's count on the path that carries it (K1-K3 the
-    # quickstart run, K4/K5 the payload path), all three paths beside it
+    # quickstart run, K4/K5 the payload path, K6 the serving run), all four
+    # paths beside it
     by_path = {"genqsgd": path["launches"], "gqfedwavg": wavg["launches"],
-               "payload": pay["launches"]}
-    timed = {**kern["main"], **fused["main"]}
-    worst = {**kern["worst"], **fused["worst"]}
+               "payload": pay["launches"], "serve": serve["launches"]}
+    home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
+            "flash_decode": "serve"}
+    timed = {**kern["main"], **fused["main"], **k6["main"]}
+    worst = {**kern["worst"], **fused["worst"], **k6["worst"]}
     kernels = []
     for name, (ms, plain, lib, (bnd, by)) in timed.items():
-        home = "payload" if name.startswith("fused") else "genqsgd"
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": by_path[home][name],
+            "launches": by_path[home.get(name, "genqsgd")][name],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "max_abs_err": worst[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,

@@ -1,4 +1,4 @@
-"""repro.families — pluggable FL-algorithm-family subsystem.
+"""repro_torch.families — pluggable FL-algorithm-family subsystem.
 
 An :class:`AlgorithmFamily` owns everything the pipeline used to hardcode
 for GenQSGD: the decision-variable map, the convergence-block reweighting
@@ -8,7 +8,7 @@ for the interface and :mod:`repro.families.builtin` for the shipped
 families (``genqsgd`` / ``pm`` / ``fa`` / ``pr`` bit-identical to the
 pre-family pipeline, plus ``gqfedwavg``).
 
-    from repro.families import get_family, register
+    from repro_torch.families import get_family, register
     fam = get_family("gqfedwavg")
     register(GQFedWAvgFamily(key="gqfedwavg-heavy", momentum=0.9))
 """

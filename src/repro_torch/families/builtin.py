@@ -77,7 +77,7 @@ class GQFedWAvgFamily(AlgorithmFamily):
     means uniform.  Register variants under their own keys to sweep weight
     schedules::
 
-        from repro.families import GQFedWAvgFamily, register
+        from repro_torch.families import GQFedWAvgFamily, register
         register(GQFedWAvgFamily(key="gqfedwavg-front",
                                  weights=(4.0, 2.0, 1.0, 1.0)))
     """

@@ -74,7 +74,7 @@ def _on_card(*tensors) -> bool:
     if kinds == {"cpu"}:
         return False
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"QSGD kernels take tensors on one CUDA device (or "
+        raise ValueError(f"the kernels take tensors on one CUDA device (or "
                          f"all on the CPU), got {[str(t.device) for t in tensors]}")
     return True
 

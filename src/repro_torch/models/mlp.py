@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import resolve_device
+
 __all__ = ["init_params", "params_from_jax", "predict", "loss", "accuracy",
            "MLP", "PARAM_DIM", "KEYS", "estimate_constants"]
 
@@ -35,10 +37,12 @@ def init_params(generator: torch.Generator) -> dict:
     }
 
 
-def params_from_jax(params: dict, device="cpu") -> dict:
+def params_from_jax(params: dict, device="cuda") -> dict:
     """The JAX package's MLP parameters (as NumPy arrays) as this package's
-    tensors: the layouts are the same, so this is a copy."""
-    return {k: torch.tensor(np.array(params[k], np.float32), device=device)
+    tensors on ``device`` (the card unless the caller asks for the CPU):
+    the layouts are the same, so this is a copy."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.array(params[k], np.float32), device=dev)
             for k in KEYS}
 
 

@@ -1,4 +1,4 @@
-"""repro.obs — spans, metrics, and the predicted-vs-measured drift ledger.
+"""repro_torch.obs — spans, metrics, and the predicted-vs-measured drift ledger.
 
 Off by default and provably inert: until :func:`enable` flips the global
 switch, every ``trace.span`` returns a shared no-op context manager, every
@@ -9,7 +9,7 @@ by ``tests/unit/test_obs.py`` and hard-gated, with <2% overhead, by
 
 Quickstart::
 
-    from repro import obs
+    from repro_torch import obs
     obs.enable()
     with obs.trace.span("my.block", note="warm"):
         report = scenario.run(plan, backend="reference", seed=0)

@@ -102,7 +102,7 @@ def test_gqfedwavg_round_matches_reference(tasks, ref_alg):
     x_r, m_r = ralg._round(p0, rdata, key, jnp.float32(GAMMA))
     x_r = np.asarray(r_flatten(x_r))
     x0 = flatten_like(params_from_jax({k: np.asarray(v)
-                                       for k, v in p0.items()}))
+                                       for k, v in p0.items()}, device="cpu"))
     draws = _jax_draws(key, palg.n_local, pcfg.K_max, pcfg.B, palg.msg_dim)
     x_p, m_p = palg.round(x0, *draws, GAMMA)
     np.testing.assert_allclose(float(m_p["delta_norm"]),

@@ -1,0 +1,132 @@
+"""Flash decode (K6): the port's plain version, which its wrapper runs for
+CPU tensors, against the JAX package's Pallas kernel in interpret mode (as
+``tests/kernels/test_flash_decode.py`` runs it) and against a float64
+oracle where the Pallas kernel cannot go (C not a multiple of 512).
+
+Tolerances, by q's (the output's) type: f32 1e-5 (absolute and relative:
+both sides accumulate in f32, in another order), also over a bf16 cache;
+bf16 3e-2, the JAX package's own for its kernel (the output is rounded to
+bf16).  Inputs come from numpy seeds; bf16 inputs are the same bf16 values
+on both sides.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_decode import BLOCK_C, flash_decode_call
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _inputs(B, KV, G, dh, C, dtype, seed, kv_dtype=None, p_valid=0.7):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, dh)) * 2)
+    k = torch.from_numpy(rng.standard_normal((B, C, KV, dh)))
+    v = torch.from_numpy(rng.standard_normal((B, C, KV, dh)))
+    valid = rng.random((B, C)) < p_valid
+    valid[:, rng.integers(0, C)] = True          # no row fully masked
+    kv_dtype = kv_dtype or dtype
+    return (q.to(dtype), k.to(kv_dtype), v.to(kv_dtype),
+            torch.from_numpy(valid.astype(np.float32)))
+
+
+def _jax(t):
+    a = jnp.asarray(t.float().numpy())
+    return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+
+def _pallas(q, k, v, valid):
+    out = flash_decode_call(_jax(q), _jax(k), _jax(v), _jax(valid),
+                            interpret=True)
+    return torch.tensor(np.asarray(out, np.float32))
+
+
+def _oracle64(q, k, v, valid):
+    """The dense softmax in float64."""
+    q, k, v = (t.double().numpy() for t in (q, k, v))
+    s = np.einsum("bhgd,bchd->bhgc", q, k) / np.sqrt(q.shape[-1])
+    s = np.where(valid.numpy()[:, None, None, :] > 0, s, -1e30)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    return torch.from_numpy(np.einsum("bhgc,bchd->bhgd", w, v))
+
+
+@pytest.mark.parametrize("B,KV,G,dh,nb", [
+    (2, 2, 2, 64, 1),
+    (1, 2, 8, 128, 2),
+    (2, 1, 16, 256, 1),
+])
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)], ids=["f32", "bf16", "f32-bf16cache"])
+def test_plain_matches_pallas(B, KV, G, dh, nb, dtype, kv_dtype):
+    q, k, v, valid = _inputs(B, KV, G, dh, nb * BLOCK_C, dtype,
+                             seed=B * 31 + KV * 7 + dh + nb,
+                             kv_dtype=kv_dtype)
+    out = flash_decode(q, k, v, valid)        # CPU tensors: the plain version
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), _pallas(q, k, v, valid),
+                               rtol=tol, atol=tol)
+
+
+def test_single_valid_token_and_all_masked_row():
+    """Row 0 attends to one entry (its output is that v row); row 1 to none
+    (uniform weights: the mean of v over C), as the TPU kernel gives."""
+    B, KV, G, dh, C = 2, 2, 2, 64, BLOCK_C
+    q, k, v, _ = _inputs(B, KV, G, dh, C, torch.float32, seed=9)
+    valid = torch.zeros(B, C)
+    valid[0, 137] = 1.0
+    out = flash_decode(q, k, v, valid)
+    torch.testing.assert_close(out, _pallas(q, k, v, valid), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out[0], v[0, 137][:, None].expand(KV, G, dh),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(out[1], v[1].mean(0)[:, None].expand(KV, G, dh),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("C", [1, 3, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ragged_cache_matches_oracle(C, dtype):
+    q, k, v, valid = _inputs(3, 2, 2, 128, C, dtype, seed=C)
+    out = flash_decode(q, k, v, valid.bool())
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.double(), _oracle64(q, k, v, valid),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 2, 2, 64), (1, 8, 3, 64), (1, 8)),        # kv heads differ
+    ((1, 2, 2, 64), (1, 8, 2, 32), (1, 8)),        # head dims differ
+    ((1, 2, 2, 64), (1, 8, 2, 64), (1, 9)),        # mask length
+    ((2, 2, 2, 64), (1, 8, 2, 64), (1, 8)),        # batch
+])
+def test_wrapper_rejects_bad_shapes(shapes):
+    qs, ks, vs = shapes
+    with pytest.raises(ValueError):
+        flash_decode(torch.zeros(qs), torch.zeros(ks), torch.zeros(ks),
+                     torch.ones(vs))
+
+
+def test_wrapper_rejects_mixed_cache_types():
+    q = torch.zeros(1, 1, 1, 64)
+    k = torch.zeros(1, 4, 1, 64)
+    with pytest.raises(ValueError):
+        flash_decode(q, k, k.to(torch.bfloat16), torch.ones(1, 4))
+    with pytest.raises(ValueError):
+        flash_decode(q.double(), k, k, torch.ones(1, 4))
+
+
+def test_plain_version_is_the_dense_softmax():
+    """The plain version is the JAX test's oracle: at bf16 it computes in
+    f32 and rounds only its output."""
+    q, k, v, valid = _inputs(2, 2, 4, 64, 40, torch.bfloat16, seed=5)
+    out = flash_decode_plain(q, k, v, valid)
+    ref = _oracle64(q, k, v, valid)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.double(), ref.to(torch.bfloat16).double(),
+                               rtol=2.0 ** -7, atol=1e-6)

@@ -27,8 +27,17 @@ _BLOCKED_IMPORTS = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+#: modules each slice added; the walk above must have imported them
+_SLICE_MODULES = (
+    "repro_torch.kernels.qsgd", "repro_torch.core.genqsgd",
+    "repro_torch.kernels.fused_encode", "repro_torch.compress.rotation",
+    "repro_torch.configs.base", "repro_torch.configs.qwen3_1_7b",
+    "repro_torch.configs.gemma3_4b", "repro_torch.kernels.flash_decode",
+    "repro_torch.models.blocks", "repro_torch.models.lm",
+    "repro_torch.models.registry", "repro_torch.serve.engine")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -36,5 +45,7 @@ def test_port_imports_without_jax_or_repro():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the slice was imported
-    assert int(proc.stdout.split()[-1]) >= 30, proc.stdout
+    # every module of the slices was imported
+    names = set(proc.stdout.split())
+    assert len(names) >= 40, proc.stdout
+    assert not set(_SLICE_MODULES) - names, set(_SLICE_MODULES) - names

@@ -24,7 +24,8 @@ def data():
 
 def _params(seed):
     p = RM.init_params(jax.random.PRNGKey(seed))
-    return p, PM.params_from_jax({k: np.asarray(v) for k, v in p.items()})
+    return p, PM.params_from_jax({k: np.asarray(v) for k, v in p.items()},
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -95,7 +96,8 @@ def test_estimate_constants_match(data):
     got = PM.estimate_constants(
         torch.from_numpy(X), torch.from_numpy(y).long(), n_iters=n_iters,
         n_probe=n_probe,
-        params=PM.params_from_jax({k: np.asarray(v) for k, v in rp.items()}),
+        params=PM.params_from_jax({k: np.asarray(v) for k, v in rp.items()},
+                                  device="cpu"),
         idx=torch.from_numpy(np.stack(idx)).long())
     for name in ("L", "sigma", "G", "f_gap", "f0", "f_star"):
         np.testing.assert_allclose(got[name], ref[name], rtol=1e-3,

@@ -103,7 +103,7 @@ def test_round_matches_reference(tasks):
     x_r, m_r = ralg._round(p0, rdata, key, jnp.float32(GAMMA))
     x_r = np.asarray(r_flatten(x_r))
     x0 = flatten_like(params_from_jax({k: np.asarray(v)
-                                       for k, v in p0.items()}))
+                                       for k, v in p0.items()}, device="cpu"))
     draws = _jax_draws(key, palg.n_local, pcfg.K_max, pcfg.B, palg.dim)
     x_p, m_p = palg.round(x0, *draws, GAMMA)
     np.testing.assert_allclose(float(m_p["delta_norm"]),
