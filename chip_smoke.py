@@ -18,9 +18,9 @@ Phases, each of which fails the script on error:
      rows {1, 10} x d {2, 64, 1024, 2^15} x seeds {0, 5, 2^32-1}, each at
      s = 7 packed and s = 127 unpacked: the norm within rtol 1e-6, the
      payload byte-identical to the plain quantize (+ pack) fed the kernel's
-     own norm, K5's rotated
-     rows bitwise the plain rotate; a launch the card refuses (K5 asked for
-     more shared memory than a block has) raises.  Then each kernel's time
+     own norm, K1's norm bitwise K4's, K5's rotated rows bitwise the plain
+     rotate; a launch the card refuses (K5 asked for more shared memory
+     than a block has) raises.  Then each kernel's time
      beside its plain version's, its byte bound and a one-call PyTorch
      yardstick where one exists (device times from CUDA-graph replay,
      beside the eager call's time with its host work);
@@ -50,9 +50,13 @@ Phases, each of which fails the script on error:
      ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
      heads, G = 2, dh = 128) over bf16 and f32 caches, a gemma3-width
      shape (dh 256, 4 kv heads) under a 1024-token window mask, G in
-     {1, 7, 16}, dh 64, ragged C (1000, 777), one valid token and an
-     all-masked row; then its time at the serving shape beside its byte
-     bound, its plain version and ``scaled_dot_product_attention``;
+     {1, 7, 16}, dh 64, ragged C (1000, 777, 3001), C in {1, 5, 9} (fewer
+     positions than splits of the cache), one valid token, an all-masked
+     row and a row valid only inside one block's range; each shape called
+     twice, the outputs bitwise equal.  Then its time at the serving, the
+     gemma3-width and the G = 16 shapes beside its byte bound, its plain
+     version and ``scaled_dot_product_attention``, with the blocks the
+     card keeps resident;
   7. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
      max_len=4096)`` at full width (28 layers, d_model 2048, vocab
      151,936; f32 weights from ``lm.init_params`` with a seeded generator,
@@ -61,7 +65,8 @@ Phases, each of which fails the script on error:
      before and read just after: K6 launches once per layer per decode
      step, nothing else launches; prints prefill ms per request, ms per
      decode step, tokens/s and, over 10 profiled decode steps, K6's share
-     of device time and the device's busy share.  The same model cut to 2
+     of device time (one K6 kernel, launched 28 times a step, and no
+     combine kernel) and the device's busy share.  The same model cut to 2
      layers then prefills a 64-token prompt and decodes 4 tokens on the
      card and on the CPU (plain versions) with the same weights: logits
      within 1e-3 and equal greedy tokens over an f32 cache, logits within
@@ -119,7 +124,8 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
 #: the serving shape first; masks "prefix" (a random length valid per row,
 #: as a cache filled from position 0), "window" (a 1024-token band before a
 #: random query position), "one" (one valid entry a row), "none-row0" (row
-#: 0 fully masked, the others prefixes)
+#: 0 fully masked, the others prefixes), "one-split" (row 0 valid only
+#: inside the range of one split of the cache, the others prefixes)
 K6_SHAPES = (
     ("serving", 8, 4096, 8, 2, 128, "f32", "bf16", "prefix"),
     ("serving f32 cache", 8, 4096, 8, 2, 128, "f32", "f32", "prefix"),
@@ -130,7 +136,16 @@ K6_SHAPES = (
     ("G=1 dh=64 ragged f32", 4, 777, 16, 1, 64, "f32", "f32", "prefix"),
     ("one valid token", 8, 4096, 8, 2, 128, "f32", "bf16", "one"),
     ("all-masked row", 8, 4096, 8, 2, 128, "f32", "bf16", "none-row0"),
+    ("C=1", 2, 1, 8, 2, 128, "f32", "bf16", "prefix"),
+    ("C=5 bf16 q", 2, 5, 8, 2, 128, "bf16", "bf16", "prefix"),
+    ("C=9 G=16 dh=256 f32", 3, 9, 2, 16, 256, "f32", "f32", "none-row0"),
+    ("one split", 8, 4096, 8, 2, 128, "f32", "bf16", "one-split"),
+    ("one split ragged dh=64", 4, 3001, 4, 4, 64, "bf16", "bf16",
+     "one-split"),
 )
+#: K6's timed shapes: the serving shape (the JSON line's row) and two
+#: other widths
+K6_TIMED = ("serving", "gemma3 width", "G=16")
 K6_TOL = 1e-5
 K6_WINDOW = 1024
 REPLACES = {
@@ -425,10 +440,16 @@ def phase_fused_kernels(dev) -> dict:
                 err = check("K4", out, norm, norm_p,
                             payload_given_norm(y, u, s, norm, pack),
                             f"rows={rows} n={n} s={s} pack={pack}")
+                # K1 and K4 add the same partials in the same order
+                if not torch.equal(K.qsgd_sumsq(y, s)[1].view(torch.int32),
+                                   norm.view(torch.int32)):
+                    raise AssertionError(f"K1's norm is not K4's bit for "
+                                         f"bit (rows={rows} n={n})")
                 if (rows, n) == (10, MAIN_D):
                     worst["fused_encode"] = max(worst["fused_encode"], err)
         log(f"[fused] K4 rows={rows}: n in {K4_NS}, s=7 packed and s=127 "
-            f"unpacked agree with the plain version")
+            f"unpacked agree with the plain version; K1's norm is K4's bit "
+            f"for bit")
     for rows in (1, 10):
         for d in K5_DS:
             y = torch.randn(rows, d, generator=gen, device=dev) * 3.0
@@ -810,6 +831,7 @@ def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
     """Phase 6's inputs on ``dev`` from ``gen``: q (B, KV, G, dh), k/v
     (B, C, KV, dh), a bool (B, C) mask of the named kind."""
     import torch
+    from repro_torch.kernels import flash_decode as FD
     types = {"f32": torch.float32, "bf16": torch.bfloat16}
     q = (torch.randn(B, KV, G, dh, generator=gen, device=dev) * 2).to(
         types[q_type])
@@ -828,14 +850,62 @@ def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
         valid = cpos < lens
         if mask == "none-row0":
             valid[0] = False
+        if mask == "one-split":
+            tile = FD.stage_positions(dh, k.element_size())
+            lo, hi = FD.split_ranges(C, tile)[1][FD.SPLITS // 2 - 1]
+            valid[0] = False
+            valid[0, lo:hi] = torch.rand(hi - lo, generator=gen,
+                                         device=dev) < 0.5
+            valid[0, (lo + hi) // 2] = True
     return q, k, v, valid
+
+
+def k6_sdpa(q, k, v, valid):
+    """The yardstick: one ``scaled_dot_product_attention`` call, (B, heads,
+    1, dh) against (B, KV, C, dh) views of the cache with a boolean mask;
+    SDPA takes one type for q, k, v, so q is cast to the cache's type
+    beforehand.  -> (call, what)."""
+    import torch.nn.functional as F
+    B, KV, G, dh = q.shape
+    qs = q.to(k.dtype).reshape(B, KV * G, 1, dh)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    ms4 = valid[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms4,
+                                       enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=ms4, enable_gqa=True),
+            "sdpa(enable_gqa=True), q in the cache's type")
+    except TypeError:              # no enable_gqa: kv heads expanded first
+        ke = ks.repeat_interleave(G, dim=1)
+        ve = vs.repeat_interleave(G, dim=1)
+        return (lambda: F.scaled_dot_product_attention(qs, ke, ve,
+                                                       attn_mask=ms4),
+                "sdpa on kv heads expanded G times, q in the cache's type")
+
+
+def k6_blocks_per_sm(q, k) -> int:
+    """Blocks of K6's instantiation for these types and widths that one SM
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    fn = build.load("flash_decode").flash_decode_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(q.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
+             int(k.dtype == torch.bfloat16), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"flash_decode_blocks_per_sm: CUDA error {err}")
+    return n.value
 
 
 def phase_flash_decode(dev) -> dict:
     """Phase 6: K6 against its plain version on ``dev`` at every shape of
-    K6_SHAPES, then (on the card) its times at the serving shape."""
+    K6_SHAPES, twice (the two outputs bitwise equal), then (on the card) its
+    times at K6_TIMED beside its plain version's and SDPA's."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as FD
 
     dev = torch.device(dev)
@@ -844,12 +914,19 @@ def phase_flash_decode(dev) -> dict:
     for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:
         q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
         out = FD.flash_decode(q, k, v, valid)
+        again = FD.flash_decode(q, k, v, valid)
         ref = FD.flash_decode_plain(q, k, v, valid)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         if out.dtype != q.dtype or out.shape != q.shape:
             raise AssertionError(f"K6 {name}: output {out.dtype} "
                                  f"{tuple(out.shape)}")
+        if not torch.equal(out.view(torch.int16 if qt == "bf16" else
+                                    torch.int32),
+                           again.view(torch.int16 if qt == "bf16" else
+                                      torch.int32)):
+            raise AssertionError(f"K6 {name}: two calls on the same inputs "
+                                 f"differ")
         # f32 accumulation on both sides, in another order; a bf16 output
         # is the f32 result rounded, so one bf16 ulp apart at most
         rtol = K6_TOL if qt == "f32" else 2.0 ** -7
@@ -863,65 +940,47 @@ def phase_flash_decode(dev) -> dict:
                                        rtol=K6_TOL, atol=K6_TOL)
         if mask == "none-row0":    # uniform weights: the mean of v
             want = v[0].float().mean(0)[:, None].expand_as(out[0])
-            torch.testing.assert_close(out[0].float(), want, rtol=K6_TOL,
-                                       atol=K6_TOL)
+            torch.testing.assert_close(out[0].float(), want,
+                                       rtol=rtol, atol=K6_TOL)
         if name == "serving":
             worst = err
         log(f"[k6] {name}: B={B} C={C} KV={KV} G={G} dh={dh} q {qt} cache "
-            f"{kvt} mask {mask}: max abs err {err:.3g}")
+            f"{kvt} mask {mask}: max abs err {err:.3g}, repeat bitwise")
     log("[k6] flash decode agrees with its plain version at every shape")
     if dev.type != "cuda":
         return {"worst": {"flash_decode": worst}, "main": {}}
 
-    # times at the serving shape (q f32, bf16 cache)
-    _, B, C, KV, G, dh, qt, kvt, mask = K6_SHAPES[0]
-    q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
-    kv_bytes = 2 * k.numel() * k.element_size()
-    nbytes = kv_bytes + 2 * q.numel() * 4 + valid.numel()
-    bnd, by = bound_ms(nbytes, 4 * B * KV * G * C * dh)
-    # the yardstick: one SDPA call, (B, heads, 1, dh) against (B, KV, C, dh)
-    # views of the cache, a boolean mask; SDPA takes one type for q, k, v,
-    # so q is cast to the cache's type beforehand
-    qs = q.to(k.dtype).reshape(B, KV * G, 1, dh)
-    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    ms4 = valid[:, None, None, :]
-    try:
-        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms4,
-                                       enable_gqa=True)
-        lib = (lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=ms4, enable_gqa=True))
-        lib_what = "sdpa(enable_gqa=True), bf16 q"
-    except TypeError:              # no enable_gqa: kv heads expanded first
-        ke = ks.repeat_interleave(G, dim=1)
-        ve = vs.repeat_interleave(G, dim=1)
-        lib = (lambda: F.scaled_dot_product_attention(qs, ke, ve,
-                                                      attn_mask=ms4))
-        lib_what = "sdpa on kv heads expanded G times, bf16 q"
-    def kern():
-        return FD.flash_decode(q, k, v, valid)
-
-    def plain():
-        return FD.flash_decode_plain(q, k, v, valid)
-
-    ms, pl, lb = device_ms(kern), device_ms(plain), device_ms(lib)
-    log(f"[time] flash_decode B={B} C={C} KV={KV} G={G} dh={dh} q {qt} "
-        f"cache {kvt}: kernel {ms * 1e3:.2f} us (eager call "
-        f"{eager_ms(kern) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, library "
-        f"{lb * 1e3:.2f} us ({lib_what}), bound {bnd * 1e3:.2f} us ({by}; "
-        f"K/V alone {kv_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), "
-        f"{bnd / ms * 100:.1f}% of the bound")
+    main = {}
     for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:
-        if name not in ("gemma3 width", "G=16"):
+        if name not in K6_TIMED:
             continue
         q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
-        t = device_ms(lambda: FD.flash_decode(q, k, v, valid))
-        b2, _ = bound_ms(2 * k.numel() * k.element_size()
-                         + 2 * q.numel() * 4 + valid.numel(),
-                         4 * B * KV * G * C * dh)
-        log(f"[time] flash_decode {name}: kernel {t * 1e3:.2f} us, bound "
-            f"{b2 * 1e3:.2f} us")
-    return {"worst": {"flash_decode": worst},
-            "main": {"flash_decode": (ms, pl, lb, (bnd, by))}}
+        kv_bytes = 2 * k.numel() * k.element_size()
+        nbytes = kv_bytes + 2 * q.numel() * q.element_size() + valid.numel()
+        bnd, by = bound_ms(nbytes, 4 * B * KV * G * C * dh)
+        lib, lib_what = k6_sdpa(q, k, v, valid)
+
+        def kern():
+            return FD.flash_decode(q, k, v, valid)
+
+        def plain():
+            return FD.flash_decode_plain(q, k, v, valid)
+
+        ms, pl, lb = device_ms(kern), device_ms(plain), device_ms(lib)
+        blocks = FD.SPLITS * KV * B
+        slots = k6_blocks_per_sm(q, k) * torch.cuda.get_device_properties(
+            0).multi_processor_count
+        log(f"[time] flash_decode {name} B={B} C={C} KV={KV} G={G} dh={dh} "
+            f"q {qt} cache {kvt}: kernel {ms * 1e3:.2f} us (eager call "
+            f"{eager_ms(kern) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, "
+            f"library {lb * 1e3:.2f} us ({lib_what}), bound "
+            f"{bnd * 1e3:.2f} us ({by}; K/V alone "
+            f"{kv_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), "
+            f"{bnd / ms * 100:.1f}% of the bound; {blocks} blocks, {slots} "
+            f"resident at once ({-(-blocks // max(slots, 1))} wave(s))")
+        if name == "serving":
+            main["flash_decode"] = (ms, pl, lb, (bnd, by))
+    return {"worst": {"flash_decode": worst}, "main": main}
 
 
 def tree_to(tree, dev):
@@ -1077,11 +1136,21 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> None:
     while eng.step():
         pass
     events = log_device_time(prof, wall, steps, "step")
-    k6 = sum(e.self_device_time_total for e in events
-             if "flash_decode" in e.key)
+    # K6 is one kernel, launched once a layer a step, with no combine
+    n_attn = sum(c for t, c in cfg.segments)
+    k6 = [e for e in events if "flash_decode" in e.key]
+    if len(k6) != 1 or k6[0].count != n_attn * steps:
+        raise AssertionError(f"K6 kernels in the decode profile: "
+                             f"{[(e.key, e.count) for e in k6]}, want one "
+                             f"name launched {n_attn} times a step")
+    if any("combine" in e.key for e in events):
+        raise AssertionError("a combine kernel ran on the decode path")
     busy = sum(e.self_device_time_total for e in events)
-    log(f"[profile] flash_decode {k6 / steps / 1e3:.3f} ms/step = "
-        f"{k6 / max(busy, 1e-9) * 100:.1f}% of device time")
+    t6 = k6[0].self_device_time_total
+    log(f"[profile] flash_decode {t6 / steps / 1e3:.3f} ms/step = "
+        f"{t6 / max(busy, 1e-9) * 100:.1f}% of device time, "
+        f"{k6[0].count / steps:.0f} launches/step of one kernel "
+        f"({k6[0].key[:60]}), {t6 / k6[0].count:.2f} us a launch")
 
 
 def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:

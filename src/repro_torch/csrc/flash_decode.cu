@@ -1,8 +1,9 @@
 // Flash decode (K6) for Hopper (sm_90a): single-token GQA attention of q
 // (B, KV, G, dh) against a KV cache k/v (B, C, KV, dh) with a (B, C) valid
 // mask, in f32 with an online softmax.  Plain C entry point, loaded with
-// ctypes by repro_torch/kernels/build.py; the Python wrapper and the plain
-// PyTorch version live in repro_torch/kernels/flash_decode.py.
+// ctypes by repro_torch/kernels/build.py; the Python wrapper, the split
+// geometry and the plain PyTorch version live in
+// repro_torch/kernels/flash_decode.py.
 //
 // Replaces (JAX package, src/repro/kernels/flash_decode.py):
 //   K6 flash_decode  <- _flash_decode_kernel / flash_decode_call
@@ -16,26 +17,60 @@
 //
 // What bounds it: each cache entry is read once (K and V: 2 * C * KV * dh
 // elements per batch row) against about 4 * G flops per element, so device
-// memory bandwidth bounds it.  The TPU kernel walks the cache as a
-// sequential grid axis and carries (m, l, acc) in VMEM scratch; blocks here
-// run in parallel and in no order, and B * KV alone (64 at qwen3-1.7b with
-// 8 slots) would fill under half of the 132 SMs.  So the cache is split
-// (split-K flash decoding): block (split, kv, b) covers `chunk` positions
-// with kWarps warps, each warp a contiguous run of them; the block writes
-// one f32 partial (m, l, acc) to a workspace, and a second kernel merges
-// the partials of each (b, kv) in split order.  Nothing uses atomics, so
-// the result is the same from run to run.  A cache row (dh elements of one
-// kv head, 256 bytes at dh 128 in bf16) is read by a group of lanes with
-// one 16-byte load each, so a warp's load instruction reads 32 / group
-// rows; each lane group runs its own online softmax and reduces its scores
-// with xor shuffles inside the group.  A warp loads the rows of its next
-// step before it computes on the current ones (double-buffered in
-// registers), so loads stay in flight while it computes.  The cache may
-// have any length: each block masks its own ragged edge (positions past C
-// add nothing), where the TPU kernel asked for C % 512 == 0.
+// memory bandwidth bounds it at G <= 8.  The TPU kernel walks the cache as
+// a sequential grid axis and carries (m, l, acc) in VMEM scratch; blocks
+// here run in parallel, and B * KV alone (64 at qwen3-1.7b with 8 slots)
+// would fill under half of the 132 SMs.  So one launch splits the cache of
+// each (b, kv) over kSplits blocks:
+//
+//   * grid (kSplits, KV, B).  Block `rank` of (b, kv) takes positions
+//     [rank * per, (rank + 1) * per) clipped to C; the wrapper computes
+//     `per` (ceil(C / kSplits) rounded up to the stage tile) and the kernel
+//     checks it.  A block whose range is empty contributes m = -1e30,
+//     l = 0, acc = 0.
+//   * K and V reach shared memory by Hopper's tensor copies
+//     (cp.async.bulk.tensor, the TMA): one producer thread copies a stage
+//     tile (T positions x dh of K, and of V: 8 KB) with one instruction for
+//     K and one for V, described by a tensor map of the cache as the 4-d
+//     tensor (dh, KV, C, B) that the wrapper's call encodes on the host; its
+//     completion is counted in bytes on the stage's "full" mbarrier, into a
+//     ring of kStages stages.  Rows past C arrive as zeros and are never
+//     read from memory.  (scripts/kernel_variants.py times one
+//     cp.async.bulk a row against this.)
+//   * Four consumer warps take every tile, each a quarter of its rows, and
+//     release the stage on its "empty" mbarrier.  A row is read by a group
+//     of LPR lanes, two 16-byte vectors a lane where G <= 4 (sub and
+//     sub + LPR: no bank conflicts).  The G partial sums q . k of a row are
+//     reduced and scattered over the group (about G shuffles, not
+//     G log2(LPR)), so each lane ends up owning one head: one IEEE
+//     division and one expf a row and lane, where an all-reduce would
+//     repeat them for every head in every lane.  The owners keep the
+//     running (m, l) of their heads; p and the rescale factor reach the
+//     other lanes by shuffles, and the accumulators are rescaled only when
+//     some head's running max of the warp grew (exp(0) = 1 otherwise, so
+//     skipping changes no bit).  The mask bytes of a tile, read with plain
+//     loads (rows of C bytes are not 16-byte aligned), are loaded one tile
+//     ahead.
+//   * After the last tile the lane groups of a warp merge by butterfly
+//     shuffles, the four warps' states merge through shared memory in warp
+//     order, and the block writes its (m, l, acc[G][dh]) to its slot of a
+//     workspace; one thread fences the block's writes and draws a ticket of
+//     (b, kv); the block that draws the last one merges the kSplits slots
+//     in rank order with the running-max formula, writes out and puts the
+//     ticket back to 0.  (A merge inside a cluster of the kSplits blocks
+//     measured slower at the serving shape, where this kernel's registers
+//     leave room for fewer clusters than the shape launches:
+//     scripts/kernel_variants.py, cluster_merge.)
+//
+// So there is one launch, the workspace and tickets are the wrapper's and
+// kept, and the only atomic counts blocks: the result is the same from
+// run to run.  The cache may have any length C >= 1 (the TPU kernel asked
+// for C % 512 == 0).  No tensor cores: at G <= 8 the kernel is bound by
+// bytes, and a bf16 or TF32 product would round the f32 q.
 //
 // Built WITHOUT --use_fast_math: the scale is an IEEE division and the
 // exponentials are expf, as in the plain version.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,11 +78,71 @@
 
 namespace {
 
-constexpr int kWarps = 4;          // warps per block of the split kernel
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCombineThreads = 128;
-constexpr float kNeg = -1e30f;     // a masked score, the TPU kernel's NEG
+constexpr int kSplits = 8;           // blocks a (b, kv)
+constexpr int kConsumerWarps = 4;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr int kStages = 4;           // ring depth
+constexpr int kStageBytes = 8192;    // K + V of one stage tile
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr float kNeg = -1e30f;       // a masked score, the TPU kernel's NEG
+constexpr uint64_t kWaitNs = 4000000000ull;   // 4 s
 
+// ---- mbarriers and tensor copies (PTX) -----------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait that
+// outlasts kWaitNs traps (the launch fails with an error) rather than hang
+// the card: no stage of a correct pipeline waits that long.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > kWaitNs) __trap();
+  }
+}
+// T rows of dh elements of kv head h, positions c.., batch row b, of the
+// 4-d (dh, KV, C, B) tensor `map` describes, to this block's shared
+// memory; completion counted on `bar`.  Rows past C arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int h, int c, int b,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0),
+         "r"(h), "r"(c), "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+// the consumer warps' own barrier (id 1; id 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
+// ---- types ---------------------------------------------------------------
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -61,26 +156,16 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);        // round to nearest even, as torch
 }
 
-// How a warp reads cache rows: a row of DH elements is split over LPR lanes
-// of 16 bytes each (32 for f32 at dh 256), so one load instruction of the
-// warp reads kGroups = 32 / LPR rows, each lane group its own row.
-template <typename T, int DH> struct RowSplit {
-  static constexpr int kBytes = DH * (int)sizeof(T);
-  static constexpr int LPR = kBytes / 16 < 32 ? kBytes / 16 : 32;
-  static constexpr int E = DH / LPR;                 // elements a lane
-  static constexpr int NV = E * (int)sizeof(T) / 16; // 16-byte loads a lane
-  static constexpr int kGroups = 32 / LPR;
-};
-
-__device__ __forceinline__ void unpack(const uint4* r, float* x, float) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(w[i]);
+__device__ __forceinline__ void unpack(const uint4& r, float* x, float) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
 }
 // bf16 -> f32 is exact: the bf16 bits are the high half of the f32's
-__device__ __forceinline__ void unpack(const uint4* r, float* x,
+__device__ __forceinline__ void unpack(const uint4& r, float* x,
                                        __nv_bfloat16) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(r);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     x[2 * i] = __uint_as_float(w[i] << 16);
@@ -88,324 +173,564 @@ __device__ __forceinline__ void unpack(const uint4* r, float* x,
   }
 }
 
-template <typename T, int NV, int E>
-__device__ __forceinline__ void unpack_row(const uint4 (&r)[NV],
-                                           float (&x)[E]) {
-  constexpr int kPer = 16 / (int)sizeof(T);          // elements a uint4
+// The geometry of one instantiation.  GB >= G is the compile-time bound on
+// the query heads a kv head; heads g >= G get q = 0 and are never written.
+template <typename TQ, typename TKV, int DH, int GB> struct Geo {
+  static constexpr int kRow = DH * (int)sizeof(TKV);     // bytes a cache row
+  static constexpr int T = kStageBytes / (2 * kRow);     // positions a tile
+  static constexpr int EPV = 16 / (int)sizeof(TKV);      // elements a vector
+  // a row is read by a group of LPR lanes, NV 16-byte vectors a lane (lane
+  // sub holds vectors sub, sub + LPR, ...: E elements): two a lane while
+  // the GB x E accumulator stays small, so a group spans fewer lanes
+  static constexpr int NV = (GB <= 4 || kRow > 512) ? 2 : 1;
+  static constexpr int LPR = kRow / (16 * NV);
+  static constexpr int E = NV * EPV;
+  static constexpr int NGR = 32 / LPR;                   // rows a warp load
+  static constexpr int U = T / (kConsumerWarps * NGR);   // rows a group a tile
+  // after the reduce-scatter of the GB partial sums a lane owns HPL heads,
+  // and a head's owner lanes are SPAN apart
+  static constexpr int HPL = GB > LPR ? GB / LPR : 1;
+  static constexpr int SPAN = GB > LPR ? 1 : LPR / GB;
+  static constexpr bool kQShared = GB * E > 32;          // q slice in smem
+  // shared memory: the ring, q, the barriers
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kQ = kQShared ? GB * DH * 4 : 0;
+  static constexpr int kSmem = kRing + kQ + 2 * kStages * 8;
+  // a block's state in the workspace: m[GB], l[GB], acc[GB][DH]; the
+  // epilogue merges the warps' states HC heads at a time through the ring
+  // and the q buffer
+  static constexpr int kState = 2 * GB + GB * DH;
+  static constexpr int kEpi = (kRing + kQ) / (4 * kConsumerWarps * (DH + 2));
+  static constexpr int HC = kEpi >= GB ? GB : kEpi >= 8 ? 8 : kEpi >= 4 ? 4
+                            : kEpi >= 2 ? 2 : 1;
+
+  static_assert(kRow % 32 == 0 && LPR >= 1 && LPR <= 32, "lanes a row");
+  static_assert(T % (kConsumerWarps * NGR) == 0 && U >= 1, "rows");
+  static_assert(E % 2 == 0 && GB <= 16, "two partial sums a lane");
+  static_assert(HC >= 1 && kEpi >= HC && GB % HC == 0, "epilogue chunks");
+};
+
+// q . k partial sums of GB heads over the LPR lanes of a group, reduced and
+// scattered: on return d[j], j < HPL, is the full sum of head sub / SPAN
+// (GB <= LPR) or sub * HPL + j (GB > LPR).  At each of the first log2(GB)
+// levels a lane keeps one half of its heads and adds its partner's partial
+// sums of that half; the levels after that add the one head's sums.  That
+// is about GB + log2(LPR / GB) shuffles a row, where an all-reduce of
+// every head takes GB log2(LPR).
+template <int H, int OFF, int GB>
+__device__ __forceinline__ void reduce_scatter(float (&d)[GB], int sub) {
+  if constexpr (OFF > 0) {
+    if constexpr (H > 1) {
+      const bool up = (sub & OFF) != 0;
 #pragma unroll
-  for (int i = 0; i < NV; ++i) unpack(&r[i], x + i * kPer, T());
+      for (int j = 0; j < H / 2; ++j) {
+        const float keep = up ? d[j + H / 2] : d[j];
+        const float send = up ? d[j] : d[j + H / 2];
+        d[j] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      reduce_scatter<H / 2, OFF / 2, GB>(d, sub);
+    } else {
+      d[0] += __shfl_xor_sync(0xffffffffu, d[0], OFF);
+      reduce_scatter<1, OFF / 2, GB>(d, sub);
+    }
+  }
 }
 
-template <int LPR>
-__device__ __forceinline__ float group_allsum(float v) {
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Block (split, h, b): positions [split * chunk, min(C, (split+1) * chunk))
-// of batch row b and kv head h, for the G query heads of that kv head.
-// Each warp walks a contiguous run of them, kGroups rows a load, U loads a
-// step, and loads the next step's rows before it computes on this step's
-// (registers double-buffer the cache rows).  Each lane group keeps its own
-// (m, l, acc); the groups merge through shared memory in a fixed order.
-// GB >= G is the compile-time bound on G: q sits in registers when the
-// (GB, E) slices are small and in shared memory when they are not; heads
-// g >= G are skipped.
 template <typename TQ, typename TKV, int DH, int GB>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                          const TKV* __restrict__ v,
-                          const uint8_t* __restrict__ valid, int KV, int G,
-                          long long C, long long chunk,
-                          float* __restrict__ part_ml,
-                          float* __restrict__ part_acc) {
-  using L = RowSplit<TKV, DH>;
-  constexpr int E = L::E, NV = L::NV, LPR = L::LPR, NGR = L::kGroups;
-  constexpr bool kQShared = GB * E > 32;
-  constexpr int U = GB * E <= 16 ? 4 : (GB * E <= 32 ? 2 : 1);
-  constexpr int kStep = U * NGR;                     // rows a warp step
-  constexpr int NGT = kWarps * NGR;                  // lane groups a block
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane / LPR, sub = lane % LPR;
+flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const TQ* __restrict__ q,
+                    const uint8_t* __restrict__ valid, int KV, int G,
+                    long long C, long long per, float* __restrict__ ws,
+                    unsigned int* __restrict__ tickets,
+                    TQ* __restrict__ out) {
+  using L = Geo<TQ, TKV, DH, GB>;
+  constexpr int T = L::T, E = L::E, NV = L::NV, LPR = L::LPR, NGR = L::NGR;
+  constexpr int U = L::U, EPV = L::EPV, HPL = L::HPL, SPAN = L::SPAN;
+  const int rank = blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long bh = (long long)b * KV + h;
-  const float sqrt_dh = sqrtf((float)DH);
 
-  __shared__ float sm_q[kQShared ? GB : 1][kQShared ? DH : 1];
-  __shared__ float sm_m[NGT][GB], sm_l[NGT][GB];
-  __shared__ float sm_acc[NGT][DH];
-  float qv[kQShared ? 1 : GB][kQShared ? 1 : E];
-  float acc[GB][E], m[GB], l[GB];
-#pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    m[g] = kNeg;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  }
-  if constexpr (kQShared) {
-    for (int i = threadIdx.x; i < G * DH; i += kThreads)
-      sm_q[i / DH][i % DH] = to_f32(q[bh * G * DH + i]);
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        qv[g][e] = g < G ? to_f32(q[(bh * G + g) * DH + sub * E + e]) : 0.f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* sq = reinterpret_cast<float*>(smem + L::kRing);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kRing + L::kQ);
+  uint64_t* empty = full + kStages;
+  float* st = reinterpret_cast<float*>(ring);   // the epilogue's buffer
+
+  const long long lo = min(C, (long long)rank * per);
+  const long long hi = min(C, lo + per);
+  const int ntiles = (int)((hi - lo + T - 1) / T);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const long long c_begin = (long long)split * chunk;
-  const long long c_end = min(C, c_begin + chunk);
-  const long long per_warp = (chunk + kWarps - 1) / kWarps;
-  const long long w_begin = c_begin + warp * per_warp;
-  const long long w_end = min(c_end, w_begin + per_warp);
-  const long long row = (long long)KV * DH;       // elements per position
-  const TKV* kb = k + ((long long)b * C * KV + h) * DH + sub * E;
-  const TKV* vb = v + ((long long)b * C * KV + h) * DH + sub * E;
-  const uint8_t* ok_b = valid + (long long)b * C;
-
-  uint4 kn[U][NV], vn[U][NV];
-  bool inn[U], okn[U];
-  auto fetch = [&](long long c0) {
+  if (warp == kConsumerWarps) {
+    // ---- producer: one tensor copy of T rows of K and one of V a stage;
+    // rows past C are zero-filled by the copy engine, never read --------
+    if (lane == 0) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        const int c0 = (int)(lo + (long long)t * T);
+        unsigned char* kt = ring + s * kStageBytes;
+        mbar_expect_tx(&full[s], 2u * T * L::kRow);
+        tma_load_4d(kt, &tmk, h, c0, b, &full[s]);
+        tma_load_4d(kt + T * L::kRow, &tmv, h, c0, b, &full[s]);
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---- consumers: lane group grp of warp w takes rows
+    // (u * kConsumerWarps + w) * NGR + grp of each tile, u < U.  Each lane
+    // accumulates acc[g] over its E elements of dh for every head; the
+    // running (m, l) of a head live in its owner lanes ---------------------
+    const int grp = lane / LPR, sub = lane % LPR;
+    const int base = lane - sub;                   // the group's lane 0
+    const float sqrt_dh = sqrtf((float)DH);
+    const uint8_t* ok_b = valid + (long long)b * C;
+    auto owner = [&](int g) {                      // a lane owning head g
+      return base + (GB > LPR ? g / HPL : g * SPAN);
+    };
+    // q in f32, heads g >= G zero; element of vector i, entry j of a lane:
+    // (sub + i * LPR) * EPV + j
+    float qv[L::kQShared ? 1 : GB][L::kQShared ? 1 : E];
+    if constexpr (L::kQShared) {
+      for (int i = tid; i < GB * DH; i += kConsumers)
+        sq[i] = i < G * DH ? to_f32(q[bh * G * DH + i]) : 0.f;
+      consumers_sync();
+    } else {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long c = c0 + u * NGR + grp;
-      inn[u] = c < w_end;
-      okn[u] = false;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) kn[u][i] = vn[u][i] = make_uint4(0, 0, 0, 0);
-      if (inn[u]) {
-        const uint4* kp = reinterpret_cast<const uint4*>(kb + c * row);
-        const uint4* vp = reinterpret_cast<const uint4*>(vb + c * row);
+      for (int g = 0; g < GB; ++g) {
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
-          kn[u][i] = kp[i];
-          vn[u][i] = vp[i];
+#pragma unroll
+          for (int j = 0; j < EPV; ++j)
+            qv[g][i * EPV + j] =
+                g < G ? to_f32(q[(bh * G + g) * DH + (sub + i * LPR) * EPV + j])
+                      : 0.f;
         }
-        okn[u] = ok_b[c] != 0;
       }
     }
-  };
-
-  if (w_begin < w_end) fetch(w_begin);
-  for (long long c0 = w_begin; c0 < w_end; c0 += kStep) {
-    uint4 kc[U][NV], vc[U][NV];
-    bool in[U], ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      in[u] = inn[u];
-      ok[u] = okn[u];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        kc[u][i] = kn[u][i];
-        vc[u][i] = vn[u][i];
-      }
-    }
-    if (c0 + kStep < w_end) fetch(c0 + kStep);     // the next step's rows
-
-    float s[U][GB];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[E];
-      unpack_row<TKV>(kc[u], kf);
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        if (g >= G) break;
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float qe;
-          if constexpr (kQShared) qe = sm_q[g][sub * E + e];
-          else qe = qv[g][e];
-          d = fmaf(qe, kf[e], d);
-        }
-        d = group_allsum<LPR>(d);
-        // a masked entry scores -1e30 and takes part; a position past the
-        // end of this warp's run takes no part at all
-        s[u][g] = ok[u] ? d / sqrt_dh : kNeg;
-      }
-    }
-    float p[U][GB];
+    float acc[GB][E], m[HPL], l[HPL];
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
-      if (g >= G) break;
-      float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (in[u]) mx = fmaxf(mx, s[u][g]);
-      const float corr = expf(m[g] - mx);
-      float psum = 0.f;
+      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HPL; ++j) {
+      m[j] = kNeg;
+      l[j] = 0.f;
+    }
+    // the mask bytes of the next tile are loaded one tile ahead
+    auto row_of = [&](int u) { return (u * kConsumerWarps + warp) * NGR + grp; };
+    bool okn[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long c = lo + row_of(u);
+      okn[u] = ntiles > 0 && c < hi && ok_b[c] != 0;
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      const long long c0 = lo + (long long)t * T;
+      bool ok[U], in[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        p[u][g] = in[u] ? expf(s[u][g] - mx) : 0.f;
-        psum += p[u][g];
+        ok[u] = okn[u];
+        in[u] = c0 + row_of(u) < hi;
+        const long long cn = c0 + T + row_of(u);
+        okn[u] = cn < hi && ok_b[cn] != 0;
       }
-      l[g] = l[g] * corr + psum;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= corr;
-      m[g] = mx;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float vf[E];
-      unpack_row<TKV>(vc[u], vf);
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        if (g >= G) break;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p[u][g], vf[e], acc[g][e]);
-      }
-    }
-  }
+      const TKV* kt = reinterpret_cast<const TKV*>(ring + s * kStageBytes);
+      const TKV* vt = kt + T * DH;
+      mbar_wait(&full[s], (t / kStages) & 1);
 
-  // merge the block's lane groups in order, one head at a time
-  const int gid = warp * NGR + grp;
-  if (sub == 0) {
+      // the scores of the group's rows for its own heads
+      float sc[U][HPL];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint4* kp = reinterpret_cast<const uint4*>(kt + row_of(u) * DH);
+        float kf[E];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) unpack(kp[sub + i * LPR], kf + i * EPV, TKV());
+        float d[GB];
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+#pragma unroll
+            for (int j = 0; j < EPV; j += 2) {
+              float q0, q1;
+              if constexpr (L::kQShared) {
+                q0 = sq[g * DH + (sub + i * LPR) * EPV + j];
+                q1 = sq[g * DH + (sub + i * LPR) * EPV + j + 1];
+              } else {
+                q0 = qv[g][i * EPV + j];
+                q1 = qv[g][i * EPV + j + 1];
+              }
+              d0 = fmaf(q0, kf[i * EPV + j], d0);
+              d1 = fmaf(q1, kf[i * EPV + j + 1], d1);
+            }
+          }
+          d[g] = d0 + d1;
+        }
+        reduce_scatter<GB, LPR / 2, GB>(d, sub);
+        // a masked entry scores -1e30 and takes part; a row past the
+        // block's range scores -inf and takes no part at all
+#pragma unroll
+        for (int j = 0; j < HPL; ++j)
+          sc[u][j] = in[u] ? (ok[u] ? d[j] / sqrt_dh : kNeg) : -INFINITY;
+      }
+      // the running max of the owned heads; the accumulators are rescaled
+      // only when some head's max of the warp grew (exp(0) = 1 elsewhere)
+      float mx[HPL];
+      bool grow = false;
+#pragma unroll
+      for (int j = 0; j < HPL; ++j) {
+        mx[j] = m[j];
+#pragma unroll
+        for (int u = 0; u < U; ++u) mx[j] = fmaxf(mx[j], sc[u][j]);
+        grow |= mx[j] > m[j];
+      }
+      if (__any_sync(0xffffffffu, grow)) {
+        float corr[HPL];
+#pragma unroll
+        for (int j = 0; j < HPL; ++j) {
+          corr[j] = expf(m[j] - mx[j]);
+          l[j] *= corr[j];
+          m[j] = mx[j];
+        }
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const float c = __shfl_sync(0xffffffffu, corr[g % HPL], owner(g));
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] *= c;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int j = 0; j < HPL; ++j) {
+          sc[u][j] = expf(sc[u][j] - m[j]);          // p; 0 past the range
+          l[j] += sc[u][j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint4* vp = reinterpret_cast<const uint4*>(vt + row_of(u) * DH);
+        float vf[E];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) unpack(vp[sub + i * LPR], vf + i * EPV, TKV());
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const float p = __shfl_sync(0xffffffffu, sc[u][g % HPL], owner(g));
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // ---- the block's state: every lane takes its group's (m, l) of each
+    // head from the owners; the groups of a warp are merged by butterfly
+    // shuffles (the lower group first), then the warps in order ----------
+    float mg[GB], lg[GB];
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
-      sm_m[gid][g] = m[g];
-      sm_l[gid][g] = l[g];
+      mg[g] = __shfl_sync(0xffffffffu, m[g % HPL], owner(g));
+      lg[g] = __shfl_sync(0xffffffffu, l[g % HPL], owner(g));
+    }
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+      const bool low = (lane & off) == 0;
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float mo = __shfl_xor_sync(0xffffffffu, mg[g], off);
+        const float lo_ = __shfl_xor_sync(0xffffffffu, lg[g], off);
+        const float ma = low ? mg[g] : mo, mb = low ? mo : mg[g];
+        const float mn = fmaxf(ma, mb);
+        const float ea = expf(ma - mn), eb = expf(mb - mn);
+        const float la = low ? lg[g] : lo_, lb = low ? lo_ : lg[g];
+        lg[g] = la * ea + lb * eb;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+          const float aa = low ? acc[g][e] : ao, ab = low ? ao : acc[g][e];
+          acc[g][e] = aa * ea + ab * eb;
+        }
+        mg[g] = mn;
+      }
+    }
+    // the four warps' states, HC heads at a time, through the ring and the
+    // q buffer (free now: every tile's copies completed before its
+    // consumers read it), merged in warp order into this block's slot of
+    // the workspace: m[GB], l[GB], acc[GB][DH]
+    constexpr int HC = L::HC;
+    constexpr int WS = HC * (DH + 2);            // one warp's chunk, floats
+    float* slot = ws + (bh * kSplits + rank) * L::kState;
+#pragma unroll
+    for (int c = 0; c < GB / HC; ++c) {
+      consumers_sync();
+      float* mine = st + warp * WS;              // [m HC][l HC][acc HC][DH]
+#pragma unroll
+      for (int g = c * HC; g < (c + 1) * HC; ++g) {
+        const int gl = g - c * HC;
+        if (grp == 0) {
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+#pragma unroll
+            for (int j = 0; j < EPV; ++j)
+              mine[2 * HC + gl * DH + (sub + i * LPR) * EPV + j] =
+                  acc[g][i * EPV + j];
+          }
+        }
+        if (lane == 0) {
+          mine[gl] = mg[g];
+          mine[HC + gl] = lg[g];
+        }
+      }
+      consumers_sync();
+      for (int i = tid; i < HC * DH; i += kConsumers) {
+        const int gl = i / DH;
+        float M = st[gl];
+#pragma unroll
+        for (int w = 1; w < kConsumerWarps; ++w) M = fmaxf(M, st[w * WS + gl]);
+        float A = 0.f, Lw = 0.f;
+#pragma unroll
+        for (int w = 0; w < kConsumerWarps; ++w) {
+          const float e = expf(st[w * WS + gl] - M);
+          A = fmaf(st[w * WS + 2 * HC + i], e, A);
+          Lw = fmaf(st[w * WS + HC + gl], e, Lw);
+        }
+        slot[2 * GB + c * HC * DH + i] = A;
+        if (i % DH == 0) {
+          slot[c * HC + gl] = M;
+          slot[GB + c * HC + gl] = Lw;
+        }
+      }
     }
   }
-  const long long part = bh * gridDim.x + split;   // (b, h, split)
+
+  // ---- the merge of the kSplits blocks of (b, kv) in rank order, with the
+  // running-max formula, into out -----------------------------------------
+  const int ne = G * DH;
+  auto merge = [&](auto part, int i) {       // part(r, k): rank r's slot[k]
+    const int g = i / DH;
+    float M = 0.f, Lr = 0.f, A = 0.f;
 #pragma unroll
-  for (int g = 0; g < GB; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[gid][sub * E + e] = acc[g][e];
-    __syncthreads();
-    float mb = sm_m[0][g];
-#pragma unroll
-    for (int w = 1; w < NGT; ++w) mb = fmaxf(mb, sm_m[w][g]);
-    float wt[NGT];
-#pragma unroll
-    for (int w = 0; w < NGT; ++w) wt[w] = expf(sm_m[w][g] - mb);
-    float* out_acc = part_acc + (part * G + g) * DH;
-    for (int d = threadIdx.x; d < DH; d += kThreads) {
-      float a = 0.f;
-#pragma unroll
-      for (int w = 0; w < NGT; ++w) a = fmaf(sm_acc[w][d], wt[w], a);
-      out_acc[d] = a;
+    for (int r = 0; r < kSplits; ++r) {
+      const float mr = part(r, g), lr = part(r, GB + g);
+      const float ar = part(r, 2 * GB + i);
+      if (r == 0) {
+        M = mr;
+        Lr = lr;
+        A = ar;
+      } else {
+        const float mn = fmaxf(M, mr);
+        const float ea = expf(M - mn), eb = expf(mr - mn);
+        Lr = fmaf(Lr, ea, lr * eb);
+        A = fmaf(A, ea, ar * eb);
+        M = mn;
+      }
     }
-    if (threadIdx.x == 0) {
-      float lb = 0.f;
-#pragma unroll
-      for (int w = 0; w < NGT; ++w) lb = fmaf(sm_l[w][g], wt[w], lb);
-      part_ml[(part * G + g) * 2] = mb;
-      part_ml[(part * G + g) * 2 + 1] = lb;
+    out[bh * ne + i] = from_f32<TQ>(A / fmaxf(Lr, 1e-30f));
+  };
+  {
+    // the block's state is in its workspace slot: take a ticket of (b, kv)
+    // (one thread fences the block's writes first); the block drawing the
+    // last one merges the slots and puts the ticket back to 0
+    __shared__ bool s_last;
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      s_last = atomicAdd(tickets + bh, 1u) == kSplits - 1;
     }
     __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    const float* all = ws + bh * kSplits * L::kState;
+    for (int i = tid; i < ne; i += kThreads)
+      merge([&](int r, int k) { return __ldcg(all + r * L::kState + k); }, i);
+    if (tid == 0) tickets[bh] = 0u;
   }
 }
 
-// Block (b * KV + kv, y): elements [y * kCombineThreads, ...) of that
-// (b, kv)'s (G, DH) output, one a thread: the splits' (m, l, acc) merged
-// in split order with a running max (one pass, so all of a thread's loads
-// are in flight together), out = acc / max(l, 1e-30).
-template <typename TQ>
-__global__ void __launch_bounds__(kCombineThreads)
-flash_decode_combine_kernel(const float* __restrict__ part_ml,
-                            const float* __restrict__ part_acc, int G, int DH,
-                            int splits, TQ* __restrict__ out) {
-  const long long bh = blockIdx.x;
-  const int i = blockIdx.y * kCombineThreads + threadIdx.x;
-  if (i >= G * DH) return;
-  const int g = i / DH, d = i - g * DH;
-  const float* ml = part_ml + (bh * splits * G + g) * 2;   // split stride 2G
-  const float* ac = part_acc + (bh * splits * G + g) * DH + d;
-  const long long sm = 2LL * G, sa = (long long)G * DH;
-  float M = ml[0], L = ml[1], A = ac[0];
-#pragma unroll 8
-  for (int s = 1; s < splits; ++s) {
-    const float m = ml[sm * s], mn = fmaxf(M, m);
-    const float a = expf(M - mn), b = expf(m - mn);
-    L = fmaf(L, a, ml[sm * s + 1] * b);
-    A = fmaf(A, a, ac[sa * s] * b);
-    M = mn;
-  }
-  out[(bh * G + g) * DH + d] = from_f32<TQ>(A / fmaxf(L, 1e-30f));
-}
-
+// The dynamic shared memory limit raised past 48 KB where the instantiation
+// needs it.
 template <typename TQ, typename TKV, int DH, int GB>
-int launch(const void* q, const void* k, const void* v, const uint8_t* valid,
-           int B, int KV, int G, long long C, long long chunk, int splits,
-           float* part_ml, float* part_acc, void* out, cudaStream_t st) {
-  const dim3 grid((unsigned int)splits, (unsigned int)KV, (unsigned int)B);
-  flash_decode_split_kernel<TQ, TKV, DH, GB><<<grid, kThreads, 0, st>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), valid, KV, G, C, chunk, part_ml, part_acc);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((unsigned int)(B * KV),
-                   (unsigned int)((G * DH + kCombineThreads - 1) /
-                                  kCombineThreads));
-  flash_decode_combine_kernel<TQ><<<grid2, kCombineThreads, 0, st>>>(
-      part_ml, part_acc, G, DH, splits, static_cast<TQ*>(out));
-  return (int)cudaGetLastError();
+cudaError_t configure() {
+  using L = Geo<TQ, TKV, DH, GB>;
+  if (L::kSmem <= kDefaultSmem) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_kernel<TQ, TKV, DH, GB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) cudaGetLastError();   // the next launch must not see it
+  return err;
 }
 
-template <typename TQ, typename TKV, int DH>
-int by_g(const void* q, const void* k, const void* v, const uint8_t* valid,
-         int B, int KV, int G, long long C, long long chunk, int splits,
-         float* part_ml, float* part_acc, void* out, cudaStream_t st) {
-#define K6_G(GB)                                                             \
-  if (G <= GB)                                                               \
-    return launch<TQ, TKV, DH, GB>(q, k, v, valid, B, KV, G, C, chunk,       \
-                                   splits, part_ml, part_acc, out, st);
-  K6_G(1) K6_G(2) K6_G(4) K6_G(8) K6_G(16)
-#undef K6_G
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
+// point lookup, so the library needs no link against libcuda; null if the
+// installed libcuda lacks it.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    cudaGetLastError();
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a cache k or v (B, C, KV, DH) as the 4-d tensor
+// (DH, KV, C, B), innermost first, whose box is one stage tile: DH x 1 x T
+// x 1, no swizzle, out-of-range rows filled with zeros.
+template <typename TKV, int DH, int T>
+cudaError_t cache_map(CUtensorMap* map, const void* base, int B, int KV,
+                      long long C) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t el = sizeof(TKV);
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)KV, (cuuint64_t)C,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {DH * el, (cuuint64_t)KV * DH * el,
+                                 (cuuint64_t)C * KV * DH * el};
+  const cuuint32_t box[4] = {(cuuint32_t)DH, 1, (cuuint32_t)T, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, sizeof(TKV) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename TQ_, typename TKV_, int DH_, int GB_> struct Inst {
+  using TQ = TQ_;
+  using TKV = TKV_;
+  static constexpr int DH = DH_, GB = GB_;
+};
+
+// f(Inst<TQ, TKV, DH, GB>{}) for the instantiation that takes (q type,
+// cache type, dh, G): GB is the least of {1, 2, 4, 8, 16} at or above G.
+template <typename TQ, typename TKV, int DH, typename F>
+int by_g(int G, F&& f) {
+  if (G <= 1) return f(Inst<TQ, TKV, DH, 1>{});
+  if (G <= 2) return f(Inst<TQ, TKV, DH, 2>{});
+  if (G <= 4) return f(Inst<TQ, TKV, DH, 4>{});
+  if (G <= 8) return f(Inst<TQ, TKV, DH, 8>{});
+  if (G <= 16) return f(Inst<TQ, TKV, DH, 16>{});
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TQ, typename TKV>
-int by_dh(const void* q, const void* k, const void* v, const uint8_t* valid,
-          int B, int KV, int G, int dh, long long C, long long chunk,
-          int splits, float* part_ml, float* part_acc, void* out,
-          cudaStream_t st) {
+template <typename TQ, typename TKV, typename F>
+int by_dh(int dh, int G, F&& f) {
   switch (dh) {
-    case 64:
-      return by_g<TQ, TKV, 64>(q, k, v, valid, B, KV, G, C, chunk, splits,
-                               part_ml, part_acc, out, st);
-    case 128:
-      return by_g<TQ, TKV, 128>(q, k, v, valid, B, KV, G, C, chunk, splits,
-                                part_ml, part_acc, out, st);
-    case 256:
-      return by_g<TQ, TKV, 256>(q, k, v, valid, B, KV, G, C, chunk, splits,
-                                part_ml, part_acc, out, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 64: return by_g<TQ, TKV, 64>(G, f);
+    case 128: return by_g<TQ, TKV, 128>(G, f);
+    case 256: return by_g<TQ, TKV, 256>(G, f);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename F>
+int dispatch(int q_bf16, int kv_bf16, int dh, int G, F&& f) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  if (!q_bf16 && !kv_bf16) return by_dh<float, float>(dh, G, f);
+  if (!q_bf16 && kv_bf16) return by_dh<float, __nv_bfloat16>(dh, G, f);
+  if (q_bf16 && !kv_bf16) return by_dh<__nv_bfloat16, float>(dh, G, f);
+  return by_dh<__nv_bfloat16, __nv_bfloat16>(dh, G, f);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K6: q (B, KV, G, dh), k/v (B, C, KV, dh) contiguous, f32 (0) or bf16 (1)
-// each; valid (B, C) uint8; part_ml (B * KV * splits * G * 2,) and
-// part_acc (B * KV * splits * G * dh,) f32 scratch the caller allocates,
-// splits = ceil(C / chunk); out (B, KV, G, dh) in q's type.  G <= 16,
-// dh in {64, 128, 256}; anything else returns cudaErrorInvalidValue.
+// K6: q (B, KV, G, dh), k/v (B, C, KV, dh) contiguous and 16-byte aligned,
+// f32 (0) or bf16 (1) each; valid (B, C) uint8; out (B, KV, G, dh) in q's
+// type.  per = positions a block: ceil(C / 8) rounded up to the
+// instantiation's tile of 8192 / (2 * dh * sizeof(cache element))
+// positions.  ws (ws_floats) and tickets (n_tickets, zeros) are the
+// caller's, kept from call to call: B * KV * 8 * (2 * GB + GB * dh) floats
+// and B * KV tickets, GB the least power of two >= G; the kernel leaves the
+// tickets zero.  G <= 16, dh in {64, 128, 256}; anything else returns
+// cudaErrorInvalidValue, a launch the card refuses its error.
 int flash_decode(const void* q, const void* k, const void* v,
                  const uint8_t* valid, int B, int KV, int G, int dh,
-                 long long C, long long chunk, int splits, int q_bf16,
-                 int kv_bf16, float* part_ml, float* part_acc, void* out,
-                 cudaStream_t st) {
-  if (G < 1 || G > 16 || B < 1 || KV < 1 || C < 1 || chunk < 1 ||
-      splits != (int)((C + chunk - 1) / chunk))
-    return (int)cudaErrorInvalidValue;
-#define K6_T(TQ, TKV)                                                        \
-  return by_dh<TQ, TKV>(q, k, v, valid, B, KV, G, dh, C, chunk, splits,      \
-                        part_ml, part_acc, out, st);
-  if (!q_bf16 && !kv_bf16) { K6_T(float, float) }
-  if (!q_bf16 && kv_bf16) { K6_T(float, __nv_bfloat16) }
-  if (q_bf16 && !kv_bf16) { K6_T(__nv_bfloat16, float) }
-  K6_T(__nv_bfloat16, __nv_bfloat16)
-#undef K6_T
+                 long long C, long long per, int q_bf16, int kv_bf16,
+                 float* ws, long long ws_floats, unsigned int* tickets,
+                 long long n_tickets, void* out, cudaStream_t st) {
+  if (B < 1 || KV < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  return dispatch(q_bf16, kv_bf16, dh, G, [&](auto inst) -> int {
+    using I = decltype(inst);
+    using TQ = typename I::TQ;
+    using TKV = typename I::TKV;
+    using L = Geo<TQ, TKV, I::DH, I::GB>;
+    // the wrapper's geometry must be the kernel's: ceil(C / kSplits)
+    // rounded up to the tile
+    const long long want =
+        ((C + kSplits - 1) / kSplits + L::T - 1) / L::T * L::T;
+    if (per != want) return (int)cudaErrorInvalidValue;
+    if (ws_floats < (long long)B * KV * kSplits * L::kState ||
+        n_tickets < (long long)B * KV)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tmk, tmv;
+    cudaError_t err = cache_map<TKV, I::DH, L::T>(&tmk, k, B, KV, C);
+    if (err == cudaSuccess) err = cache_map<TKV, I::DH, L::T>(&tmv, v, B, KV, C);
+    if (err != cudaSuccess) return (int)err;
+    err = configure<TQ, TKV, I::DH, I::GB>();
+    if (err != cudaSuccess) return (int)err;
+    flash_decode_kernel<TQ, TKV, I::DH, I::GB>
+        <<<dim3(kSplits, (unsigned int)KV, (unsigned int)B), kThreads,
+           L::kSmem, st>>>(tmk, tmv, static_cast<const TQ*>(q), valid, KV, G,
+                           C, per, ws, tickets, static_cast<TQ*>(out));
+    return (int)cudaGetLastError();
+  });
+}
+
+// How many blocks of K6's instantiation for (q type, cache type, dh, G)
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into *blocks; returns the CUDA error.
+int flash_decode_blocks_per_sm(int G, int dh, int q_bf16, int kv_bf16,
+                               int* blocks) {
+  return dispatch(q_bf16, kv_bf16, dh, G, [&](auto inst) -> int {
+    using I = decltype(inst);
+    using L = Geo<typename I::TQ, typename I::TKV, I::DH, I::GB>;
+    cudaError_t err = configure<typename I::TQ, typename I::TKV, I::DH, I::GB>();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks,
+        flash_decode_kernel<typename I::TQ, typename I::TKV, I::DH, I::GB>,
+        kThreads, L::kSmem);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
+  });
 }
 
 }  // extern "C"

@@ -13,7 +13,7 @@
 // y twice (norm, then quantize) and u once and writes n/2 bytes packed or
 // n unpacked.  The TPU kernel ran a two-phase sequential grid that carried
 // the sum of squares in a (1,1) block; blocks here run in parallel with no
-// grid-wide barrier, so K4 is two launches: K1's per-block partial sums
+// grid-wide barrier, so K4 is two launches: K1's per-block sums of squares
 // (qsgd_common.cuh), then a quantize+pack kernel whose every block first
 // adds the row's partials in K1's fixed order — so K4's norm is K1's, bit
 // for bit — and computes sqrt -> guard -> s / safe itself.  Each thread
@@ -45,8 +45,17 @@ __device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
   return static_cast<int8_t>(static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4)));
 }
 
+// K4, first launch: grid (P, rows), each block's partial sum of squares
+// (K1's per-block body) to partials[r * P + p].
+__global__ void __launch_bounds__(kThreads)
+sumsq_partial_kernel(const float* __restrict__ y, long long n,
+                     float* __restrict__ partials) {
+  const float s = block_sumsq(y, n);
+  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
 // K4, second launch: grid (X, rows).  Block (b, r) adds row r's P partials
-// (the same order as K1's finish), derives inv, and quantizes a grid stride
+// (the same order as K1's last block), derives inv, and quantizes a grid stride
 // of coordinate pairs (kPack) or coordinates.  Block (0, r) writes the norm.
 template <bool kPack>
 __global__ void __launch_bounds__(kThreads)

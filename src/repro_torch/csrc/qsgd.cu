@@ -14,9 +14,9 @@
 // large n.  At the model's D = 101,770 they are bound by launch latency.
 // The TPU version carried the sum of squares from one grid step to the next
 // in a (1,1) output block; blocks here run in parallel and in no order, so
-// K1 is two launches: per-block partial sums, then one block per row that
-// adds its partials in a fixed order (no float atomics: the norm is the
-// same from run to run).  Every kernel masks its own ragged edge, so no
+// K1 is one launch whose last block of each row (by an integer ticket)
+// adds the row's partial sums in a fixed order (no float atomics: the norm
+// is the same from run to run).  Every kernel masks its own ragged edge, so no
 // padding to the TPU's 512x1024 tile grid is needed.
 //
 // Built WITHOUT --use_fast_math: K2 must keep IEEE '/' and sqrtf and its
@@ -27,18 +27,36 @@
 
 namespace {
 
-// K1, stage 2: one block per row adds its P partials in a fixed order,
-// then norm = sqrt(ss), safe = norm > 0 ? norm : 1, inv = s / safe — the
-// order of the TPU fused encode (qsgd.py:184-186), on the device, so an
-// encode never waits on the host.
+// K1: grid (P, rows), one launch.  Block (p, r) writes its partial sum of
+// squares, fences it and draws a ticket of row r; the block that draws the
+// last ticket adds the row's P partials in a fixed order (sum_partials, as
+// K4 does), then norm = sqrt(ss), safe = norm > 0 ? norm : 1,
+// inv = s / safe — the order of the TPU fused encode (qsgd.py:184-186), on
+// the device, so an encode never waits on the host — and sets the ticket
+// back to 0 for the next launch.  The tickets count blocks, never floats:
+// the sum has one order and the norm is the same from run to run.
 __global__ void __launch_bounds__(kThreads)
-sumsq_finish_kernel(const float* __restrict__ partials, int P, float s,
-                    float* __restrict__ ss, float* __restrict__ norm,
-                    float* __restrict__ inv) {
-  const float tot = sum_partials(partials + (long long)blockIdx.x * P, P);
+sumsq_kernel(const float* __restrict__ y, long long n, float s,
+             float* __restrict__ partials, unsigned int* __restrict__ tickets,
+             float* __restrict__ ss, float* __restrict__ norm,
+             float* __restrict__ inv) {
+  __shared__ bool s_last;
+  const unsigned int P = gridDim.x;
+  const long long row = blockIdx.y;
+  const float part = block_sumsq(y, n);
   if (threadIdx.x == 0) {
-    ss[blockIdx.x] = tot;
-    inv[blockIdx.x] = inv_scale(tot, s, norm + blockIdx.x);
+    partials[row * P + blockIdx.x] = part;
+    __threadfence();                    // the partial, before the ticket
+    s_last = atomicAdd(tickets + row, 1u) == P - 1;
+  }
+  __syncthreads();                      // also between the two block sums
+  if (!s_last) return;
+  __threadfence();
+  const float tot = sum_partials(partials + row * P, (int)P);
+  if (threadIdx.x == 0) {
+    ss[row] = tot;
+    inv[row] = inv_scale(tot, s, norm + row);
+    tickets[row] = 0u;
   }
 }
 
@@ -98,16 +116,14 @@ int launch_dequant_apply(const float* x, const T* lvl, const float* norm,
 extern "C" {
 
 // K1: y (rows, n) f32 -> ss, norm, inv (rows,) f32; partials (rows * P,)
-// is scratch the caller allocates.
+// is scratch the caller allocates, tickets (rows,) zeros the caller keeps
+// (each launch leaves them zero).
 int qsgd_sumsq(const float* y, long long rows, long long n, int P, float s,
-               float* partials, float* ss, float* norm, float* inv,
-               cudaStream_t st) {
-  const dim3 grid1((unsigned int)P, (unsigned int)rows);
-  sumsq_partial_kernel<<<grid1, kThreads, 0, st>>>(y, n, partials);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sumsq_finish_kernel<<<(unsigned int)rows, kThreads, 0, st>>>(
-      partials, P, s, ss, norm, inv);
+               float* partials, unsigned int* tickets, float* ss, float* norm,
+               float* inv, cudaStream_t st) {
+  const dim3 grid((unsigned int)P, (unsigned int)rows);
+  sumsq_kernel<<<grid, kThreads, 0, st>>>(y, n, s, partials, tickets, ss,
+                                          norm, inv);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Pieces shared by the QSGD kernels (qsgd.cu: K1-K3) and the one-pass
-// encodes (fused_encode.cu: K4, K5): the fixed-order block sum, K1's
-// per-block partial sums of squares, and the stochastic level of one
+// encodes (fused_encode.cu: K4, K5): the fixed-order block sum, the
+// per-block sum of squares of K1 and K4, and the stochastic level of one
 // coordinate.  Each .cu that includes this builds into its own library.
 #pragma once
 
@@ -19,7 +19,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Fixed-order block sum for a block of kBlock threads (warp shuffles, then
 // warp 0 over the warp sums); the result is valid in thread 0.  Uses its
-// own shared scratch, so a kernel calls it once.
+// own shared scratch: a kernel that calls it twice puts a __syncthreads()
+// between the calls.
 template <int kBlock>
 __device__ __forceinline__ float block_sum(float v) {
   static_assert(kBlock % 32 == 0 && kBlock <= 1024, "block size");
@@ -34,12 +35,12 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// K1, stage 1: grid (P, rows).  Block (p, r) sums y[r, i]^2 over a grid
-// stride of 16-byte loads; the row is peeled to 16-byte alignment first
-// (rows of odd length start mid-vector) and its tail done scalar.
-__global__ void __launch_bounds__(kThreads)
-sumsq_partial_kernel(const float* __restrict__ y, long long n,
-                     float* __restrict__ partials) {
+// The per-block body of K1 and of K4's first launch, grid (P, rows): block
+// (p, r) sums y[r, i]^2 over a grid stride of 16-byte loads; the row is
+// peeled to 16-byte alignment first (rows of odd length start mid-vector)
+// and its tail done scalar.  The block's sum is valid in thread 0.
+__device__ __forceinline__ float block_sumsq(const float* __restrict__ y,
+                                             long long n) {
   const float* row = y + (long long)blockIdx.y * n;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -61,17 +62,17 @@ sumsq_partial_kernel(const float* __restrict__ y, long long n,
     const float v = row[t];
     acc += v * v;
   }
-  const float s = block_sum<kThreads>(acc);
-  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
+  return block_sum<kThreads>(acc);
 }
 
 // The sum of one row's P partials, in a fixed order (thread i takes
 // partials i, i + kThreads, ...; then the block sum); valid in thread 0.
-// K1's finish and K4's quantize both reduce this way, so their norms agree
-// bit for bit.
+// K1's last block and K4's quantize both reduce this way, so their norms
+// agree bit for bit.  The loads bypass L1 (__ldcg): in K1 other blocks of
+// the same launch wrote the partials.
 __device__ __forceinline__ float sum_partials(const float* __restrict__ p, int P) {
   float acc = 0.f;
-  for (int i = threadIdx.x; i < P; i += kThreads) acc += p[i];
+  for (int i = threadIdx.x; i < P; i += kThreads) acc += __ldcg(p + i);
   return block_sum<kThreads>(acc);
 }
 

@@ -13,20 +13,24 @@ Head h = kv * G + g of the model is (kv, g) here, the JAX package's
 grouping.
 
 What bounds it: every cache entry is read once with about 4G flops per
-element, so device-memory bandwidth (3.35 TB/s on an H100 SXM) does: at
-qwen3-1.7b's serving shape (8 slots x 4096 positions x 8 kv heads x 128,
-bf16) a call moves 134 MB.  The kernel splits the cache across blocks
-(split-K flash decoding) and merges the f32 partials in a second kernel in
-a fixed order, so B * KV = 64 (b, kv) pairs still fill the 132 SMs and the
-result is the same from run to run.  It takes any C (the TPU kernel asked
-for a multiple of 512): each block masks its own ragged edge.
+element, so device-memory bandwidth (3.35 TB/s on an H100 SXM) does at
+G <= 8: at qwen3-1.7b's serving shape (8 slots x 4096 positions x 8 kv
+heads x 128, bf16) a call moves 134 MB.  The kernel is one launch: the
+cache of each (b, kv) is split over :data:`SPLITS` blocks
+(:func:`split_ranges`), each block streams its range through a ring in
+shared memory filled by Hopper's tensor copies (TMA), and the last block of
+each (b, kv) to finish, found by an integer ticket, merges the blocks' f32
+(m, l, acc) in a fixed order, so B * KV = 64 (b, kv) pairs still fill the
+132 SMs and the result is the same from run to run.  The merge's workspace
+and tickets are kept per device (:func:`_scratch`): a call allocates only
+its output.  It takes any C (the TPU kernel asked for a multiple of 512).
 
 q is f32 or bf16, k and v f32 or bf16 (one type for both), G <= 16 and
 dh in {64, 128, 256}, which covers every config of the JAX package.  The
 wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors — only because the tensors lie on the CPU; a CUDA tensor never
-falls back.  ``LAUNCHES`` counts wrapper calls that launched the kernel
-(one call launches the split and the combine kernels).
+falls back, and a launch the card refuses raises.  ``LAUNCHES`` counts
+wrapper calls that launched the kernel (one launch a call).
 """
 from __future__ import annotations
 
@@ -38,14 +42,17 @@ import torch
 from . import build
 from .qsgd import _on_card
 
-__all__ = ["LAUNCHES", "reset_launches", "CHUNK", "MAX_G", "HEAD_DIMS",
-           "flash_decode", "flash_decode_plain"]
+__all__ = ["LAUNCHES", "reset_launches", "SPLITS", "MAX_G", "HEAD_DIMS",
+           "stage_positions", "split_ranges", "flash_decode",
+           "flash_decode_plain"]
 
 #: kernel launches per wrapper (the plain version never counts)
 LAUNCHES = {"flash_decode": 0}
 
-#: cache positions per block of the split kernel: ceil(C / CHUNK) splits
-CHUNK = 256
+#: blocks a (b, kv): the cache of one (b, kv) is split this many ways
+SPLITS = 8
+#: bytes of K plus V a stage of the kernel's ring holds
+_STAGE_BYTES = 8192
 MAX_G = 16
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -53,12 +60,55 @@ _MAX_GRID_YZ = 65535
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of the C entry point in csrc/flash_decode.cu, stream
 #: excluded
-_SIG = ([_PTR] * 4 + [_INT] * 4 + [_LL, _LL] + [_INT] * 3 + [_PTR] * 3)
+_SIG = ([_PTR] * 4 + [_INT] * 4 + [_LL, _LL, _INT, _INT]
+        + [_PTR, _LL, _PTR, _LL, _PTR])
+#: per device: (workspace f32, tickets int32), kept and grown, never shrunk
+_SCRATCH: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def stage_positions(dh: int, itemsize: int) -> int:
+    """Cache positions a stage tile of the kernel holds: 8 KB of K and V
+    (16 at dh 128 over a bf16 cache)."""
+    return _STAGE_BYTES // (2 * dh * itemsize)
+
+
+def _per(C: int, tile: int) -> int:
+    per = -(-C // SPLITS)
+    return -(-per // tile) * tile
+
+
+def split_ranges(C: int, tile: int) -> tuple:
+    """The kernel's split of C positions over a cluster: block r takes
+    ``[lo, hi)`` with ``per = ceil(C / SPLITS)`` rounded up to ``tile``,
+    ``lo = min(C, r * per)``, ``hi = min(C, lo + per)``; a range may be
+    empty.  -> ``(per, [(lo, hi), ...])``."""
+    per = _per(C, tile)
+    ranges = []
+    for r in range(SPLITS):
+        lo = min(C, r * per)
+        ranges.append((lo, min(C, lo + per)))
+    return per, ranges
+
+
+def _scratch(device, n_ws: int, n_tickets: int):
+    """The merge's workspace and tickets on ``device``, allocated on first
+    use and kept (regrown when a call needs more), so a call allocates only
+    its output.  The last block of each (b, kv) puts its ticket back to 0.
+    The kernel runs on PyTorch's current stream: two K6 launches in flight
+    at once on different streams of one device would share them, which the
+    port never does."""
+    ws, tickets = _SCRATCH.get(device, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _SCRATCH[device] = (ws, tickets)
+    return ws, tickets
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,16 +159,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid.dtype != torch.bool:
         valid = valid > 0
     valid = valid.contiguous()
-    splits = -(-C // CHUNK)
-    part_ml = torch.empty(B * KV * splits * G * 2, dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty(B * KV * splits * G * dh, dtype=torch.float32,
-                           device=q.device)
+    per = _per(C, stage_positions(dh, k.element_size()))
+    gb = 1 << (G - 1).bit_length()                # the kernel's head bound
+    n_ws = B * KV * SPLITS * (2 * gb + gb * dh)
+    ws, tickets = _scratch(q.device, n_ws, B * KV)
     out = torch.empty_like(q)
     build.launch("flash_decode", "flash_decode", _SIG, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), valid.data_ptr(), B, KV, G, dh,
-                 C, CHUNK, splits, int(q.dtype == torch.bfloat16),
-                 int(k.dtype == torch.bfloat16), part_ml.data_ptr(),
-                 part_acc.data_ptr(), out.data_ptr())
+                 C, per, int(q.dtype == torch.bfloat16),
+                 int(k.dtype == torch.bfloat16), ws.data_ptr(), ws.numel(),
+                 tickets.data_ptr(), tickets.numel(), out.data_ptr())
     LAUNCHES["flash_decode"] += 1
     return out

@@ -16,9 +16,11 @@ D = 101,770 a launch moves well under a megabyte and launch latency
 bounds them.  The design therefore batches: K1 and K2 take a (rows, n)
 matrix, so the N worker uploads of a round are one launch each, and K1
 leaves norm and ``inv = s / norm`` on the device, so an encode never
-synchronizes with the host.  K1 is deterministic (fixed-order two-stage
-reduction, no float atomics).  Levels are int8 for s <= 127, as on the
-TPU, and int32 above (the paper's s = 2^14).
+synchronizes with the host.  K1 is one launch and deterministic: each
+block writes its partial sum, and the last block of a row (by an integer
+ticket, :func:`_tickets`) adds them in a fixed order; no float atomics.
+Levels are int8 for s <= 127, as on the TPU, and int32 above (the paper's
+s = 2^14).
 
 Each wrapper runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor — only because the tensor lies on the CPU; a CUDA tensor never
@@ -44,7 +46,7 @@ _MAX_ROWS = 65535          # grid.y limit
 _PTR, _LL, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 #: argument types of the C entry points in csrc/qsgd.cu, stream excluded
 _SIGS = {
-    "qsgd_sumsq": [_PTR, _LL, _LL, ctypes.c_int, _F32] + [_PTR] * 4,
+    "qsgd_sumsq": [_PTR, _LL, _LL, ctypes.c_int, _F32] + [_PTR] * 5,
     "qsgd_quantize_i8": [_PTR] * 3 + [_LL] * 2 + [_PTR],
     "qsgd_quantize_i32": [_PTR] * 3 + [_LL] * 2 + [_PTR],
     "qsgd_dequant_apply_i8": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
@@ -63,9 +65,26 @@ def level_dtype(s: int) -> torch.dtype:
 
 
 def sumsq_blocks(n: int) -> int:
-    """K1's stage-1 blocks per row: about 16 floats a thread, at most 1024
-    (a function of n alone, so the reduction order never changes)."""
+    """K1's (and K4's) blocks per row: about 16 floats a thread, at most
+    1024 (a function of n alone, so the reduction order never changes)."""
     return max(1, min(1024, -(-n // (_THREADS * 16))))
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """K1's per-row tickets on ``device``: ``_MAX_ROWS`` int32 zeros,
+    allocated once and kept; each launch's last block of a row sets its
+    ticket back to 0 (so a CUDA-graph replay finds them zero too).  K1 runs
+    on PyTorch's current stream: two K1 launches in flight at once on
+    different streams of one device would share the tickets, which the
+    port never does."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = torch.zeros(_MAX_ROWS, dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def _on_card(*tensors) -> bool:
@@ -136,8 +155,8 @@ def qsgd_sumsq(y: torch.Tensor, s):
     ss, norm, inv = (torch.empty(rows, dtype=torch.float32, device=y.device)
                      for _ in range(3))
     _launch("qsgd_sumsq", y.data_ptr(), rows, n, P, float(s),
-            partials.data_ptr(), ss.data_ptr(), norm.data_ptr(),
-            inv.data_ptr())
+            partials.data_ptr(), _tickets(y.device).data_ptr(),
+            ss.data_ptr(), norm.data_ptr(), inv.data_ptr())
     LAUNCHES["qsgd_sumsq"] += 1
     return ss, norm, inv
 

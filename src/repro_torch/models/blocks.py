@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported
+from .. import not_ported, resolve_device
 from ..configs.base import ArchConfig
 from ..kernels.flash_decode import flash_decode
 
@@ -186,7 +186,10 @@ def attn_decode(p, x, cfg: ArchConfig, positions, cache, *, window=None):
 
 
 def make_cache(cfg: ArchConfig, batch: int, length: int,
-               dtype=torch.bfloat16, device="cpu", lead: tuple = ()):
+               dtype=torch.bfloat16, device="cuda", lead: tuple = ()):
+    """An empty cache of ``length`` positions on ``device`` (the card
+    unless the caller asks for the CPU; with no card it raises)."""
+    device = resolve_device(device)
     KV = cfg.n_kv
     return {
         "k": torch.zeros(*lead, batch, length, KV, cfg.d_head, dtype=dtype,

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from repro.kernels.flash_decode import BLOCK_C, flash_decode_call
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import (
+    HEAD_DIMS, SPLITS, flash_decode, flash_decode_plain, split_ranges,
+    stage_positions)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -130,3 +132,105 @@ def test_plain_version_is_the_dense_softmax():
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.double(), ref.to(torch.bfloat16).double(),
                                rtol=2.0 ** -7, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split of the cache over a cluster, and its merge, modelled
+# in plain PyTorch: what the CUDA kernel computes, checkable on the CPU
+# ---------------------------------------------------------------------------
+TILES = sorted({stage_positions(dh, size) for dh in HEAD_DIMS
+                for size in (2, 4)})
+
+
+@pytest.mark.parametrize("C", [1, 5, 8, 255, 256, 257, 777, 1000, 4096,
+                               32768])
+def test_split_ranges_cover_the_cache_once(C):
+    """The SPLITS ranges cover [0, C) exactly once, in rank order, each a
+    whole number of tiles long but the last non-empty one; empty ranges
+    (C < SPLITS * tile) sit at the end."""
+    for tile in TILES:
+        per, ranges = split_ranges(C, tile)
+        assert len(ranges) == SPLITS and per % tile == 0
+        assert per == ((C + SPLITS - 1) // SPLITS + tile - 1) // tile * tile
+        covered = np.zeros(C, np.int64)
+        end = 0
+        for lo, hi in ranges:
+            assert lo == end and lo <= hi <= lo + per
+            covered[lo:hi] += 1
+            end = hi
+        assert end == C and (covered == 1).all()
+        sizes = [hi - lo for lo, hi in ranges]
+        nonempty = [n for n in sizes if n]
+        assert all(n == per for n in nonempty[:-1])
+        assert sizes == nonempty + [0] * (SPLITS - len(nonempty))
+
+
+def _merge_model(q, k, v, valid, tile=16):
+    """The kernel's arithmetic in f32: each split's (m, l, acc) from the
+    -1e30 start (an empty split keeps m = -1e30, l = 0, acc = 0), then the
+    splits merged in rank order with the running-max formula, and
+    out = acc / max(l, 1e-30)."""
+    q, k, v = q.float(), k.float(), v.float()
+    B, KV, G, dh = q.shape
+    _, ranges = split_ranges(k.shape[1], tile)
+    neg = torch.tensor(-1e30)
+    M = L = A = None
+    for lo, hi in ranges:
+        m = torch.full((B, KV, G), -1e30)
+        l = torch.zeros(B, KV, G)
+        acc = torch.zeros(B, KV, G, dh)
+        if hi > lo:
+            s = torch.einsum("bhgd,bchd->bhgc", q, k[:, lo:hi]) / \
+                torch.sqrt(torch.tensor(float(dh)))
+            s = torch.where(valid[:, None, None, lo:hi] > 0, s, neg)
+            m = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m[..., None])
+            l = p.sum(-1)
+            acc = torch.einsum("bhgc,bchd->bhgd", p, v[:, lo:hi])
+        if M is None:
+            M, L, A = m, l, acc
+            continue
+        mn = torch.maximum(M, m)
+        a, b = torch.exp(M - mn), torch.exp(m - mn)
+        L = L * a + l * b
+        A = A * a[..., None] + acc * b[..., None]
+        M = mn
+    return A / torch.clamp(L, min=1e-30)[..., None]
+
+
+def _mask(kind, B, C, rng):
+    valid = rng.random((B, C)) < 0.6
+    valid[:, rng.integers(0, C)] = True
+    if kind == "all-masked row":
+        valid[0] = False
+    elif kind == "one split":
+        # every valid entry of row 0 inside one split's range
+        _, ranges = split_ranges(C, 16)
+        lo, hi = max(ranges, key=lambda r: r[1] - r[0])
+        valid[0] = False
+        valid[0, lo:hi] = rng.random(hi - lo) < 0.5
+        valid[0, (lo + hi) // 2] = True
+    return torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("C,kind", [
+    (1, "random"), (5, "random"), (9, "all-masked row"), (100, "one split"),
+    (777, "random"), (1000, "all-masked row"), (512, "random"),
+    (1024, "one split")])
+def test_merge_model_matches_plain(C, kind):
+    """The split-and-merge model against the plain version within 1e-5,
+    and against the Pallas kernel (interpret mode) where C % 512 == 0;
+    ragged C, C < SPLITS, an all-masked row (the mean of v) and a row whose
+    valid entries all lie in one split."""
+    rng = np.random.default_rng(C)
+    q, k, v, _ = _inputs(2, 2, 3, 64, C, torch.float32, seed=C)
+    valid = _mask(kind, 2, C, rng)
+    out = _merge_model(q, k, v, valid)
+    torch.testing.assert_close(out, flash_decode_plain(q, k, v, valid),
+                               rtol=1e-5, atol=1e-5)
+    if kind == "all-masked row":
+        torch.testing.assert_close(out[0], v[0].mean(0)[:, None].expand(
+            2, 3, 64), rtol=1e-5, atol=1e-5)
+    if C % BLOCK_C == 0:
+        torch.testing.assert_close(out, _pallas(q, k, v, valid.float()),
+                                   rtol=1e-5, atol=1e-5)

@@ -272,3 +272,16 @@ def test_entry_points_default_to_the_card():
                  lambda: PLM.params_from_jax({"w": np.zeros(2)})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_make_cache_defaults_to_the_card():
+    """``blocks.make_cache`` runs on the card unless asked for the CPU: with
+    no card a call without a device raises, with one the cache lies there."""
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    cpu = PB.make_cache(cfg, 2, 8, device="cpu")
+    assert cpu["k"].device.type == "cpu" and cpu["k"].shape[:2] == (2, 8)
+    if torch.cuda.is_available():
+        assert PB.make_cache(cfg, 2, 8)["k"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PB.make_cache(cfg, 2, 8)
