@@ -12,15 +12,18 @@ Phases, each of which fails the script on error:
      on the card.  K1-K3 at the main paths' shapes (10 and 1 rows of
      D = 101,770 for GenQSGD, of d' = 2^17 for GQFedWAvg) and at a
      streaming size (n = 2^24), for s in {7, 127, 16384}: K2 bitwise given
-     the same inv, K1's norm within rtol 1e-6, K3 within rtol 1e-5 /
-     atol 1e-6.  K4 at rows {1, 10} x n in K4_NS (1 .. 2^22, odd and
-     ragged lengths and every length the payload path gives it) and K5 at
-     rows {1, 10} x d {2, 64, 1024, 2^15} x seeds {0, 5, 2^32-1}, each at
-     s = 7 packed and s = 127 unpacked: the norm within rtol 1e-6, the
-     payload byte-identical to the plain quantize (+ pack) fed the kernel's
-     own norm, K1's norm bitwise K4's, K5's rotated rows bitwise the plain
-     rotate; a launch the card refuses (K5 asked for more shared memory
-     than a block has) raises.  Then each kernel's time
+     the same inv, K1's norm within rtol 1e-6, K3 bitwise, on its vector
+     branch and, for row 1 of a (10, 101,770) level matrix (8 bytes off
+     x's alignment in int32, 2 in int8), on its scalar branch.  K4 at rows
+     {1, 10} x n in K4_NS (1 .. 2^22, odd and ragged lengths and every
+     length the payload path gives it) and K5 at rows {1, 10} x d in K5_DS
+     (2 .. 2^15, over every change of its cluster size) x seeds
+     {0, 5, 2^32-1}, each at s = 7 packed and s = 127 unpacked: the norm
+     within rtol 1e-6, the payload byte-identical to the plain quantize
+     (+ pack) fed the kernel's own norm, K1's norm bitwise K4's, K5's
+     rotated rows bitwise the plain rotate; a launch the card refuses (K5
+     at d = 2^16 asks for a cluster of 16 blocks, above the portable 8)
+     raises and leaves no error behind.  Then each kernel's time
      beside its plain version's, its byte bound and a one-call PyTorch
      yardstick where one exists (device times from CUDA-graph replay,
      beside the eager call's time with its host work);
@@ -108,7 +111,7 @@ PAYLOAD_NS = (1000, 1 << 15, (1 << 15) + 1, 1 << 16, 1 << 20, 1 << 22)
 #: their pow2 pads above K5's 2^15)
 K4_NS = tuple(sorted({1, 2, 127, 2049, MAIN_D, (1 << 16) + 3, 1 << 17,
                       *PAYLOAD_NS, 1 << 16}))
-K5_DS = (2, 64, 1024, 1 << 15)
+K5_DS = (2, 64, 1024, 1 << 12, 1 << 13, 1 << 14, 1 << 15)
 K5_SEEDS = (0, 5, 2**32 - 1)
 FUSED_S = ((7, True), (127, False))          # (s, pack)
 #: GQFedWAvg with unequal aggregation weights and heavy momentum, for the
@@ -288,6 +291,10 @@ def phase_kernels() -> dict:
             lvl_p = K.quantize_plain(y, u, inv, s)
             out = K.qsgd_dequant_apply(x, lvl[0], norm[:1], s, 0.05)
             out_p = K.dequant_apply_plain(x, lvl[0], norm[:1], s, 0.05)
+            # row 1: another alignment phase than x's at n = D
+            r1 = min(1, rows - 1)
+            out1 = K.qsgd_dequant_apply(x, lvl[r1], norm[:1], s, 0.05)
+            out1_p = K.dequant_apply_plain(x, lvl[r1], norm[:1], s, 0.05)
             torch.cuda.synchronize()
             torch.testing.assert_close(norm, norm_p, rtol=1e-6, atol=0)
             if not torch.equal(lvl, lvl_p):
@@ -297,7 +304,14 @@ def phase_kernels() -> dict:
                                      f"(rows={rows} n={n} s={s})")
             if int(lvl.abs().max()) > s:
                 raise AssertionError(f"K2 level above s={s}")
-            torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-6)
+            for o, o_p, row in ((out, out_p, 0), (out1, out1_p, r1)):
+                if not torch.equal(o.view(torch.int32), o_p.view(torch.int32)):
+                    bad = (o != o_p).nonzero()
+                    raise AssertionError(
+                        f"K3 differs from the plain version at {len(bad)} "
+                        f"of {n} (rows={rows} n={n} s={s} level row {row}, "
+                        f"{k3_branch(x, lvl[row], out)} branch; first at "
+                        f"{bad[:4].flatten().tolist()})")
             if n == MAIN_D:
                 worst["qsgd_sumsq"] = max(worst["qsgd_sumsq"], float(
                     (norm - norm_p).abs().max()))
@@ -306,8 +320,9 @@ def phase_kernels() -> dict:
                     float((out - out_p).abs().max()))
             log(f"[kernels] rows={rows} n={n} s={s}: K1 norm rel err "
                 f"{float(((norm - norm_p).abs() / norm_p).max()):.3g}, "
-                f"K2 bitwise, K3 max abs err "
-                f"{float((out - out_p).abs().max()):.3g}")
+                f"K2 bitwise, K3 bitwise on level rows 0 "
+                f"({k3_branch(x, lvl[0], out)}) and {r1} "
+                f"({k3_branch(x, lvl[r1], out1)})")
     log("[kernels] all kernels agree with their plain versions")
 
     # times at the main path's shapes (s = 2^14: int32 levels) and at the
@@ -360,6 +375,16 @@ def phase_kernels() -> dict:
             if (name == "qsgd_dequant_apply") == (rows == 1):
                 main[name] = v
     return {"worst": worst, "main": main}
+
+
+def k3_branch(x, lvl, out) -> str:
+    """Which branch of K3 these pointers take (the kernel's own test):
+    "vector" when out and the levels share x's 16-byte phase."""
+    head = ((16 - x.data_ptr() % 16) % 16) // 4
+    vec = (out.data_ptr() + 4 * head) % 16 == 0 and \
+        (lvl.data_ptr() + lvl.element_size() * head) % (
+            4 * lvl.element_size()) == 0
+    return "vector" if vec else "scalar"
 
 
 def reset_launches() -> None:
@@ -477,21 +502,24 @@ def phase_fused_kernels(dev) -> dict:
     if dev.type != "cuda":
         return {"worst": worst, "main": {}}
 
-    # a launch the card refuses raises: 2^16 f32 of shared memory is more
-    # than a block may have (the wrapper itself refuses d > 2^15 earlier)
+    # a launch the card refuses raises: at d = 2^16 K5 asks for a cluster
+    # of 16 blocks, above the portable 8, without the non-portable
+    # attribute (the wrapper itself refuses d > 2^15 earlier)
     big = torch.zeros(1, 1 << 16, device=dev)
     out = torch.empty(1, 1 << 15, dtype=torch.int8, device=dev)
     norm = torch.empty(1, device=dev)
+    args = FE._k5_args(big, 0, 7, True)
     try:
         build.launch("fused_encode", "fused_rotate_encode",
                      FE._SIGS["fused_rotate_encode"], big.data_ptr(),
-                     big.data_ptr(), 1, 1 << 16, 0, 1.0, 7.0, 1,
-                     norm.data_ptr(), out.data_ptr(), None)
+                     big.data_ptr(), *args, norm.data_ptr(), out.data_ptr(),
+                     None)
     except RuntimeError as e:
-        log(f"[fused] refused launch raised: {e}")
+        log(f"[fused] refused launch (d = 2^16, cluster of {args[2]}) "
+            f"raised: {e}")
     else:
-        raise AssertionError("a K5 launch with 256 KiB of shared memory did "
-                             "not raise")
+        raise AssertionError(f"a K5 launch with a cluster of {args[2]} "
+                             f"blocks did not raise")
     y = torch.randn(1, 1024, device=dev)
     FE.fused_rotate_encode(y, torch.rand(1, 1024, device=dev), 7, 0, True)
     torch.cuda.synchronize()                 # the refusal left no error
@@ -525,8 +553,11 @@ def phase_fused_kernels(dev) -> dict:
             plain = (lambda y=y, u=u, s=s, pack=pack:
                      FE.fused_rotate_encode_plain(y, u, s, 5, pack))
             ops = e * (n.bit_length() - 1) + 20 * e
-            model = (f"one-SM float32 bound per message "
-                     f"{ops / rows / FP32_OPS_PER_SM * 1e6:.2f} us")
+            c = FE.k5_cluster(n)
+            model = (f"float32 bound per message on one SM "
+                     f"{ops / rows / FP32_OPS_PER_SM * 1e6:.2f} us, on its "
+                     f"{c} SM(s) {ops / rows / c / FP32_OPS_PER_SM * 1e6:.2f} "
+                     f"us")
         bnd, by = bound_ms(nbytes, ops)
         ms, pl = device_ms(kern), device_ms(plain)
         log(f"[time] {name} rows={rows} n={n} s={s} pack={pack}: kernel "

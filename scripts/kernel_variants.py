@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Variants of the port's flash decode (K6) and QSGD norm (K1) kernels on
-one CUDA card: each variant is the committed source with a textual patch,
-built with nvcc into ``build/variants/`` and timed beside the others in
-one process, in turns (each variant, then each again in reverse order).
+"""Variants of the port's flash decode (K6), QSGD norm (K1), dequant-apply
+(K3) and rotate-encode (K5) kernels on one CUDA card: each variant is the
+committed source with a textual patch, or an earlier design carried here
+as source text, built with nvcc into ``build/variants/`` and timed beside
+the others in one process, in turns (each variant, then each again in
+reverse order).
 
-    python3 scripts/kernel_variants.py [--only NAME,...]
+    python3 scripts/kernel_variants.py [--kernels k1,k3,k5,k6] [--only NAME,...]
 
 K6, at qwen3-1.7b's serving shape (q (8, 8, 2, 128) f32, cache
 (8, 4096, 8, 128) bf16), at gemma3 width (4 kv heads, dh 256) and at
@@ -32,12 +34,39 @@ K1, at (10, 101,770), (1, 101,770) and (1, 2^24) f32:
   partials_only  the per-block partials alone (no norm: the cost of one
                  launch that reads y once)
 
+K3, at (101,770,) int32 levels (the server apply; also row 1 of a
+(10, 101,770) level matrix, K3's scalar branch) and at (2^24,):
+  final          ``csrc/qsgd.cu`` as committed (one wave of 16-byte loads)
+  prior_k3       the design it replaces: a grid-stride loop of scalar loads
+                 over 100 blocks of 256 threads at D
+  launch_floor   ``final`` with an empty kernel body, at the same grid
+  wave_loop      ``final`` on one wave of the card (the occupancy query's
+                 blocks) with a grid-stride loop of 4 vectors a trip
+K5, at (1, 2^15) and (10, 2^15) f32 -> int4 (s = 7):
+  final          ``csrc/fused_encode.cu`` as committed (a cluster of 8
+                 blocks a message, distributed shared memory)
+  prior_k5       the design it replaces: one block of 1,024 threads a
+                 message, the whole message in one SM's shared memory
+  launch_floor   ``final`` with an empty kernel body, at the same cluster
+                 shape
+  no_exchange    ``final`` with its cluster barriers made block barriers
+                 and its stores into the peers' shared memory made local:
+                 the local stages alone (wrong results, timed only)
+  pull           ``final`` with the exchange pulled: the chunk's last stage
+                 in place, each thread loading its columns from the peers'
+                 shared memory and every block the peers' partials, and a
+                 third cluster barrier before any block may exit
+
 Also prints the serving instance's registers (ptxas) and how many of its
 blocks (``final``) or clusters (``cluster_merge``) the card holds at once.
 Times are device microseconds a call by CUDA-graph replay
 (``chip_smoke.device_ms``); outputs of ``final``, ``cluster_merge`` and
 ``row_bulk`` are held against the plain version within 1e-5, K1's norms
-bitwise against each other.  Prints the card's name and power limit.
+bitwise against each other, K3's ``final`` and ``prior_k3`` outputs bitwise
+against each other, K5's ``final`` and ``prior_k5`` rotations bitwise
+against each other (their norms sum in other orders: the relative norm
+difference and the payload bytes that differ are printed).  Prints the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -207,6 +236,183 @@ K1 = {"final": [], "two_launch": [("// K2: grid (X, rows).", _K1_KERNELS),
       "partials_only": [("// K2: grid (X, rows).", _K1_KERNELS),
                         (_K1_LAUNCH, "  sumsq_partial2<<<grid, kThreads, 0, st>>>(y, n, partials);")]}
 
+# ---- K3 ------------------------------------------------------------------------
+# the K3 the one-wave kernel replaces, as it was committed
+_PRIOR_K3 = r"""
+#include "qsgd_common.cuh"
+namespace {
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequant_apply_kernel(const float* __restrict__ x, const T* __restrict__ lvl,
+                     const float* __restrict__ norm, float s, float gamma,
+                     long long n, float* __restrict__ out) {
+  const float scale = norm[0] / s;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float l = static_cast<float>(lvl[i]);
+    out[i] = __fadd_rn(x[i], __fmul_rn(__fmul_rn(gamma, l), scale));
+  }
+}
+}  // namespace
+extern "C" int qsgd_dequant_apply_i32(const float* x, const int32_t* lvl,
+                                      const float* norm, float s, float gamma,
+                                      long long n, float* out,
+                                      cudaStream_t st) {
+  const unsigned int grid = grid_x(n, 4LL * kThreads, 8192u);
+  dequant_apply_kernel<int32_t><<<grid, kThreads, 0, st>>>(x, lvl, norm, s,
+                                                           gamma, n, out);
+  return (int)cudaGetLastError();
+}
+"""
+_K3_BODY = "  using V = typename Lvl4<T>::V;\n  const float nrm = norm[0];"
+_K3_LOOP = """  for (long long i = tid; i < nvec; i += stride) {
+    const float4 a = xv[i];
+    const V b = lv[i];
+    const float scale = late_scale(nrm, s);
+    ov[i] = make_float4(apply1(a.x, (float)b.x, gamma, scale),
+                        apply1(a.y, (float)b.y, gamma, scale),
+                        apply1(a.z, (float)b.z, gamma, scale),
+                        apply1(a.w, (float)b.w, gamma, scale));
+  }"""
+_K3_WAVE_LOOP = """  for (long long i0 = tid; i0 < nvec; i0 += 4 * stride) {
+    float4 a[4];
+    V b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i0 + k * stride < nvec) {
+        a[k] = xv[i0 + k * stride];
+        b[k] = lv[i0 + k * stride];
+      }
+    const float scale = late_scale(nrm, s);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i0 + k * stride < nvec)
+        ov[i0 + k * stride] =
+            make_float4(apply1(a[k].x, (float)b[k].x, gamma, scale),
+                        apply1(a[k].y, (float)b[k].y, gamma, scale),
+                        apply1(a[k].z, (float)b[k].z, gamma, scale),
+                        apply1(a[k].w, (float)b[k].w, gamma, scale));
+  }"""
+_K3_GRID = "  const unsigned int grid = grid_x((n + 3) >> 2, kApplyThreads, 0x7FFFFFFFu);"
+_K3_WAVE_GRID = """  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dequant_apply_kernel<T>, kApplyThreads, 0);
+  const unsigned int grid = grid_x((n + 3) >> 2, kApplyThreads,
+                                   (unsigned int)(sms * per_sm));"""
+K3 = {"final": [], "launch_floor": [(_K3_BODY, "  return;\n" + _K3_BODY)],
+      "wave_loop": [(_K3_LOOP, _K3_WAVE_LOOP), (_K3_GRID, _K3_WAVE_GRID)]}
+
+# ---- K5 ------------------------------------------------------------------------
+# the K5 the cluster kernel replaces, as it was committed: one block of
+# 1,024 threads a message
+_PRIOR_K5 = r"""
+#include "qsgd_common.cuh"
+namespace {
+constexpr int kRotThreads = 1024;
+constexpr int kDefaultSmem = 48 * 1024;
+__device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
+  return static_cast<int8_t>(static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4)));
+}
+__device__ __forceinline__ uint32_t mix32(uint32_t z) {
+  z = (z ^ (z >> 16)) * 0x85EBCA6Bu;
+  z = (z ^ (z >> 13)) * 0xC2B2AE35u;
+  return z ^ (z >> 16);
+}
+__global__ void __launch_bounds__(kRotThreads)
+rotate_encode_kernel(const float* __restrict__ ypad, const float* __restrict__ u,
+                     int d, uint32_t seed, float scale, float s,
+                     float* __restrict__ norm, int8_t* __restrict__ out,
+                     float* __restrict__ rot) {
+  extern __shared__ float x[];
+  __shared__ float s_inv;
+  const long long off = (long long)blockIdx.x * d;
+  const float* yr = ypad + off;
+  const float* ur = u + off;
+  for (int i = threadIdx.x; i < d; i += kRotThreads) {
+    const uint32_t z = mix32((uint32_t)i * 0x9E3779B9u + seed);
+    x[i] = __fmul_rn(yr[i], (z & 1u) ? -1.f : 1.f);
+  }
+  for (int h = 1; h < d; h <<= 1) {
+    __syncthreads();
+    for (int p = threadIdx.x; p < (d >> 1); p += kRotThreads) {
+      const int i0 = ((p & ~(h - 1)) << 1) | (p & (h - 1));
+      const float a = x[i0], b = x[i0 + h];
+      x[i0] = __fadd_rn(a, b);
+      x[i0 + h] = __fsub_rn(a, b);
+    }
+  }
+  __syncthreads();
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < d; i += kRotThreads) {
+    const float r = __fmul_rn(x[i], scale);
+    x[i] = r;
+    acc += r * r;
+    if (rot != nullptr) rot[off + i] = r;
+  }
+  const float tot = block_sum<kRotThreads>(acc);
+  if (threadIdx.x == 0) s_inv = inv_scale(tot, s, norm + blockIdx.x);
+  __syncthreads();
+  const float iv = s_inv;
+  int8_t* o = out + (long long)blockIdx.x * (d >> 1);
+  for (int j = threadIdx.x; j < (d >> 1); j += kRotThreads)
+    o[j] = pack_byte(qsgd_level(x[2 * j], ur[2 * j], iv),
+                     qsgd_level(x[2 * j + 1], ur[2 * j + 1], iv));
+}
+}  // namespace
+// packed (int4) only, as timed here
+extern "C" int fused_rotate_encode(const float* ypad, const float* u,
+                                   long long rows, int d, unsigned int seed,
+                                   float scale, float s, int pack, float* norm,
+                                   int8_t* out, float* rot, cudaStream_t st) {
+  const size_t smem = (size_t)d * sizeof(float);
+  if (!pack) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rotate_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+  }
+  rotate_encode_kernel<<<(unsigned int)rows, kRotThreads, smem, st>>>(
+      ypad, u, d, seed, scale, s, norm, out, rot);
+  return (int)cudaGetLastError();
+}
+"""
+_K5_BODY = "  using G = K5Geo<M>;\n"
+_K5_PEER = "  else return cg::this_cluster().map_shared_rank(p, rank);"
+_K5_SYNC = "  else cg::this_cluster().sync();"
+_K5_ARRIVE = '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" : : : "memory");'
+_K5_WAIT = '  asm volatile("barrier.cluster.wait.aligned;\\n" : : : "memory");'
+# pull: the chunk's last stage in place, then each thread loads its columns
+# from the peers and the partials from every block, with a third cluster
+# barrier so that no block exits while a peer still reads it
+_K5_PUSH = """  constexpr int kInPlace = C > 1 ? M / 2 : M;"""
+_K5_PUSH_STAGE = """    for (int p = tid; p < M / 2; p += B) {
+      const float a = x[p], b = x[p + M / 2];
+      const int q = p + M / 2;
+      peer<C>(g, p / S)[rank * S + p % S] = __fadd_rn(a, b);
+      peer<C>(g, q / S)[rank * S + q % S] = __fsub_rn(a, b);
+    }"""
+_K5_GATHER = "      const float2 f = *reinterpret_cast<const float2*>(src + k * S + 2 * q);"
+_K5_PARTS_OUT = ("#pragma unroll\n"
+                 "    for (int k = 0; k < C; ++k) peer<C>(parts, k)[rank * W + (tid >> 5)] = wsum;")
+_K5_PARTS_IN = "  for (int i = lane; i < C * W; i += 32) tot = __fadd_rn(tot, parts[i]);"
+K5 = {"final": [], "launch_floor": [(_K5_BODY, "  return;\n" + _K5_BODY)],
+      "no_exchange": [(_K5_PEER, "  else return p;"),
+                      (_K5_SYNC, "  else __syncthreads();"),
+                      (_K5_ARRIVE, ""), (_K5_WAIT, "")],
+      "pull": [(_K5_PUSH, "  constexpr int kInPlace = M;"),
+               (_K5_PUSH_STAGE, ""),
+               (_K5_GATHER, "      const float2 f = *reinterpret_cast<const float2*>(peer<C>(x, k) + col0 + 2 * q);"),
+               (_K5_PARTS_OUT, "    parts[tid >> 5] = wsum;"),
+               (_K5_PARTS_IN, _K5_PARTS_IN.replace("parts[i]", "peer<C>(parts, i / W)[i % W]")
+                + "\n  cluster_sync<C>();")]}
+
 
 def _patched(src: str, patches) -> str:
     for old, new in patches:
@@ -234,34 +440,108 @@ def _build(job):
     return so, proc.stdout + proc.stderr
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="", help="comma-separated variants")
-    args = ap.parse_args()
+def _in_turns(calls: dict) -> dict:
+    """Device us a call of each variant, timed in turns (each, then each
+    again in reverse order)."""
     import torch
-    if not torch.cuda.is_available():
-        print("kernel_variants.py: no CUDA device", file=sys.stderr)
-        return 2
     import chip_smoke as S
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_decode as FD
-    from repro_torch.kernels import qsgd as K
-    only = set(filter(None, args.only.split(",")))
-    pick = (lambda n: not only or n in only)
-    src6 = open(os.path.join(build.CSRC_DIR, "flash_decode.cu")).read()
-    src1 = open(os.path.join(build.CSRC_DIR, "qsgd.cu")).read()
-    jobs = [(f"k6_{n}", _patched(src6, p)) for n, p in K6.items() if pick(n)]
-    jobs += [(f"k1_{n}", _patched(src1, p)) for n, p in K1.items() if pick(n)]
-    if pick("stream_floor"):
-        jobs.append(("stream_floor", _STREAM))
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        built = dict(zip([name for name, _ in jobs], ex.map(_build, jobs)))
-    libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
-    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    stream = (lambda: torch.cuda.current_stream().cuda_stream)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(14)
+    times = {n: [] for n in calls}
+    for n in list(calls) + list(calls)[::-1]:
+        if calls[n]() != 0:
+            raise RuntimeError(f"{n}: launch failed")
+        torch.cuda.synchronize()
+        times[n].append(S.device_ms(calls[n]) * 1e3)
+    return times
 
+
+def run_k3(libs, stream, dev, gen) -> None:
+    import torch
+    import chip_smoke as S
+    ptr, ll, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    k3 = [n for n in libs if n.startswith("k3_")]
+    for n in k3:
+        fn = libs[n].qsgd_dequant_apply_i32
+        fn.argtypes = [ptr] * 3 + [f32] * 2 + [ll, ptr, ptr]
+        fn.restype = ctypes.c_int
+    for what, rows, n in (("(101770,)", 1, S.MAIN_D),
+                          ("row 1 of (10, 101770)", 10, S.MAIN_D),
+                          ("(2^24,)", 1, S.STREAM_N)):
+        x = torch.randn(n, generator=gen, device=dev)
+        lvl = torch.randint(-16384, 16385, (rows, n), generator=gen,
+                            device=dev, dtype=torch.int32)[min(1, rows - 1)]
+        norm = torch.rand(1, generator=gen, device=dev) * 100
+        outs = {name: torch.empty(n, device=dev) for name in k3}
+        calls = {name: (lambda fn=libs[name].qsgd_dequant_apply_i32,
+                        o=outs[name]: fn(x.data_ptr(), lvl.data_ptr(),
+                                         norm.data_ptr(), 16384.0, 0.05, n,
+                                         o.data_ptr(), stream()))
+                 for name in k3}
+        times = _in_turns(calls)
+        ref = [outs[m].view(torch.int32) for m in ("k3_final", "k3_prior_k3")
+               if m in outs]
+        same = all(torch.equal(ref[0], r) for r in ref[1:])
+        if not same:
+            raise AssertionError(f"K3 final and prior_k3 differ at {what}")
+        for name, ts in times.items():
+            print(f"[k3] {what:22s} {name:16s} " +
+                  "  ".join(f"{t:6.2f} us" for t in ts) +
+                  ("  (final and prior_k3 bitwise equal)"
+                   if name == "k3_final" and len(ref) == 2 else ""),
+                  flush=True)
+
+
+def run_k5(libs, stream, dev, gen) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_encode as FE
+    ptr, ll, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                         ctypes.c_int)
+    k5 = [n for n in libs if n.startswith("k5_")]
+    for n in k5:
+        fn = libs[n].fused_rotate_encode
+        fn.argtypes = ([ptr, ptr, ll, i32] + ([] if n == "k5_prior_k5"
+                                               else [i32]) +
+                       [ctypes.c_uint, f32, f32, i32] + [ptr] * 4)
+        fn.restype = i32
+    d, s = 1 << 15, 7
+    scale = float(np.float32(d ** -0.5))
+    for rows in (1, 10):
+        y = torch.randn(rows, d, generator=gen, device=dev)
+        u = torch.rand(rows, d, generator=gen, device=dev)
+        res = {n: (torch.empty(rows, device=dev),
+                   torch.empty(rows, d // 2, dtype=torch.int8, device=dev),
+                   torch.empty(rows, d, device=dev)) for n in k5}
+
+        def call(n, rot):
+            fn, (nm, out, r) = libs[n].fused_rotate_encode, res[n]
+            c = () if n == "k5_prior_k5" else (FE.k5_cluster(d),)
+            return fn(y.data_ptr(), u.data_ptr(), rows, d, *c, 5, scale,
+                      float(s), 1, nm.data_ptr(), out.data_ptr(),
+                      r.data_ptr() if rot else None, stream())
+        for n in k5:                         # the rotations, for the check
+            if call(n, True) != 0:
+                raise RuntimeError(f"{n}: launch failed")
+        torch.cuda.synchronize()
+        note = ""
+        if "k5_final" in res and "k5_prior_k5" in res:
+            (na, pa, ra), (nb, pb, rb) = res["k5_final"], res["k5_prior_k5"]
+            if not torch.equal(ra.view(torch.int32), rb.view(torch.int32)):
+                raise AssertionError("K5 final and prior_k5 rotations differ")
+            note = (f"  (rotations bitwise equal; norm rel diff "
+                    f"{float(((na - nb).abs() / nb).max()):.3g}, "
+                    f"{int((pa != pb).sum())} payload bytes differ)")
+        times = _in_turns({n: (lambda n=n: call(n, False)) for n in k5})
+        for n, ts in times.items():
+            print(f"[k5] ({rows}, 2^15) int4 {n:16s} " +
+                  "  ".join(f"{t:6.2f} us" for t in ts) +
+                  (note if n == "k5_final" else ""), flush=True)
+
+
+def run_k6(libs, built, stream, dev, gen) -> None:
+    import torch
+    import chip_smoke as S
+    from repro_torch.kernels import flash_decode as FD
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     k6 = [n for n in libs if n.startswith("k6_")]
     for fn in (libs[n].flash_decode for n in k6):
         fn.argtypes = [ptr] * 4 + [i32] * 4 + [ll, ll, i32, i32] + [ptr, ll, ptr, ll, ptr, ptr]
@@ -330,6 +610,12 @@ def main() -> int:
             print(f"[k6] {shape:13s} {n:17s} " + "  ".join(f"{t:7.2f} us" for t in ts),
                   flush=True)
 
+
+def run_k1(libs, stream, dev, gen) -> None:
+    import torch
+    import chip_smoke as S
+    from repro_torch.kernels import qsgd as K
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     k1 = [n for n in libs if n.startswith("k1_")]
     tickets = torch.zeros(65535, dtype=torch.int32, device=dev)
     for fn in (libs[n].qsgd_sumsq for n in k1):
@@ -357,6 +643,57 @@ def main() -> int:
             print(f"[k1] rows={rows} n={n} {name:13s} " +
                   "  ".join(f"{t:6.2f} us" for t in ts) +
                   ("" if same else "  (norms differ)"), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="k1,k3,k5,k6",
+                    help="comma-separated kernel groups")
+    ap.add_argument("--only", default="", help="comma-separated variants")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants.py: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    groups = set(filter(None, args.kernels.split(",")))
+    only = set(filter(None, args.only.split(",")))
+    pick = (lambda n: not only or n in only)
+    src = {name: open(os.path.join(build.CSRC_DIR, f"{name}.cu")).read()
+           for name in ("flash_decode", "qsgd", "fused_encode")}
+    jobs = []
+    if "k6" in groups:
+        jobs += [(f"k6_{n}", _patched(src["flash_decode"], p))
+                 for n, p in K6.items() if pick(n)]
+        if pick("stream_floor"):
+            jobs.append(("stream_floor", _STREAM))
+    if "k1" in groups:
+        jobs += [(f"k1_{n}", _patched(src["qsgd"], p))
+                 for n, p in K1.items() if pick(n)]
+    if "k3" in groups:
+        jobs += [(f"k3_{n}", _patched(src["qsgd"], p))
+                 for n, p in K3.items() if pick(n)]
+        if pick("prior_k3"):
+            jobs.append(("k3_prior_k3", _PRIOR_K3))
+    if "k5" in groups:
+        jobs += [(f"k5_{n}", _patched(src["fused_encode"], p))
+                 for n, p in K5.items() if pick(n)]
+        if pick("prior_k5"):
+            jobs.append(("k5_prior_k5", _PRIOR_K5))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(zip([name for name, _ in jobs], ex.map(_build, jobs)))
+    libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
+    stream = (lambda: torch.cuda.current_stream().cuda_stream)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    if "k6" in groups:
+        run_k6(libs, built, stream, dev, gen)
+    if "k1" in groups:
+        run_k1(libs, stream, dev, gen)
+    if "k3" in groups:
+        run_k3(libs, stream, dev, gen)
+    if "k5" in groups:
+        run_k5(libs, stream, dev, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

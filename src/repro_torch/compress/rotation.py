@@ -26,6 +26,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 __all__ = ["next_pow2", "rademacher", "fwht", "rotate", "unrotate"]
 
 _MASK32 = 0xFFFFFFFF
@@ -62,8 +64,11 @@ def _signs(n: int, seed: int, device: torch.device) -> torch.Tensor:
 
 
 def rademacher(n: int, seed: int, device=None) -> torch.Tensor:
-    """Deterministic +-1 f32 signs of length n from a 32-bit seed."""
-    return _signs(int(n), int(seed) & _MASK32, torch.device(device or "cpu"))
+    """Deterministic +-1 f32 signs of length n from a 32-bit seed, on
+    ``device`` (the card unless the caller asks for the CPU; with no card
+    it raises)."""
+    return _signs(int(n), int(seed) & _MASK32,
+                  resolve_device("cuda" if device is None else device))
 
 
 def fwht(x: torch.Tensor) -> torch.Tensor:

@@ -21,25 +21,53 @@
 // device memory.  An odd row's missing coordinate packs as nibble 0 and is
 // never read.
 //
-// K5 holds one message per block in dynamic shared memory (2^15 f32 =
-// 128 KiB, above the 48 KiB default, so the launch raises the block's limit
-// with cudaFuncSetAttribute first): Rademacher signs from the murmur3
-// finalizer in uint32, the butterflies stage by stage with a barrier
-// between stages (adds and subtracts only, so bitwise the plain FWHT), the
-// d^-1/2 scale, a fixed-order block sum for the norm, then quantize and
-// pack as K4.  u is read straight from device memory.  One block per
-// message occupies one SM, so a single message is bound by that SM, not by
-// the card's bandwidth; clusters and TMA are for a later change.
+// K5 spreads one message of d = c * M coordinates over a thread block
+// cluster of c blocks on c SMs (c = d / 4096 from 2^13 up, 8 at 2^15, 1
+// below; the wrapper's k5_cluster), each block holding a chunk of M <= 4096
+// coordinates (16 KiB of shared memory).  What bounds it is latency: 2^15
+// coordinates are 0.28 MB in and out (0.08 us of bandwidth) and 0.8 MFLOP,
+// but the 15 butterfly stages are a chain of dependent steps: one SM with
+// a barrier between stages walks them in ~33 us.  So the stages run where
+// they are cheapest, in the plain FWHT's order h = 1, 2, 4, ... (a
+// different order is a different summation tree and would break the
+// bitwise rotation):
+//   * y comes in as 16-byte vectors, 16 contiguous coordinates a thread,
+//     and u (float2 pairs) is loaded at the start for the last phase;
+//   * the Rademacher signs (murmur3 finalizer in uint32), then the stages
+//     h < 16 in registers, h < 512 by warp shuffles, h < M through shared
+//     memory with a barrier each (pairs at consecutive addresses: no bank
+//     conflicts);
+//   * the chunk's last stage (h = M/2) stores each output straight into
+//     the shared memory of the block that owns its column (block `rank`
+//     owns columns [rank * M/c, (rank + 1) * M/c) of every chunk), through
+//     distributed shared memory; after one cluster barrier each thread
+//     holds, for its column pairs (j, j+1), the c coordinates
+//     x[k * M + j] of every chunk k, and runs the log2(c) cross stages in
+//     registers (k-bit 0, 1, 2), then the d^-1/2 scale;
+//   * the norm in a fixed order: a tree over the thread's squares, the
+//     warp's shuffle tree, then the c * (warps) partials, which each warp
+//     stores into every block of the cluster before a second cluster
+//     barrier, added in index order by every thread, so every block
+//     derives the same inv bit for bit.  After that barrier no block
+//     touches a peer's shared memory, so none can exit under a peer that
+//     still needs it (the split barrier at the start, arrive then wait
+//     before the first store, makes sure every peer has started);
+//   * quantize and pack from registers: a thread owns whole nibble pairs.
+// Adds and subtracts only in the butterflies and one multiply for the
+// scale, so the rotated rows are bitwise the plain rotate.  The cluster is
+// a launch attribute (cudaLaunchKernelEx); a cluster above the portable 8
+// (d = 2^16 at c = 16) is refused by the card, which the smoke run checks.
 //
 // Built WITHOUT --use_fast_math, like qsgd.cu: levels are held bitwise
 // against the plain versions, so '/', sqrtf and every multiply/subtract keep
 // IEEE rounding.
+#include <cooperative_groups.h>
+
 #include "qsgd_common.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kRotThreads = 1024;
-constexpr int kDefaultSmem = 48 * 1024;
+namespace {
 
 __device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
   return static_cast<int8_t>(static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4)));
@@ -99,78 +127,299 @@ __device__ __forceinline__ uint32_t mix32(uint32_t z) {
   return z ^ (z >> 16);
 }
 
-// K5: one block per row of a (rows, d) matrix, d a power of two.  The
-// rotated message r = fwht(y * signs) * scale lives in shared memory x[];
-// ``rot`` (nullable) receives a copy of r for checking.
-template <bool kPack>
-__global__ void __launch_bounds__(kRotThreads)
-rotate_encode_kernel(const float* __restrict__ ypad, const float* __restrict__ u,
-                     int d, uint32_t seed, float scale, float s,
-                     float* __restrict__ norm, int8_t* __restrict__ out,
-                     float* __restrict__ rot) {
-  extern __shared__ float x[];
-  __shared__ float s_inv;
-  const long long off = (long long)blockIdx.x * d;
-  const float* yr = ypad + off;
-  const float* ur = u + off;
-  for (int i = threadIdx.x; i < d; i += kRotThreads) {
-    const uint32_t z = mix32((uint32_t)i * 0x9E3779B9u + seed);
-    x[i] = __fmul_rn(yr[i], (z & 1u) ? -1.f : 1.f);
+// K5's block: a chunk of M coordinates, E contiguous ones a worker thread
+// (T workers), blocks of at least a warp (threads past T hold zeros in the
+// local stages).
+template <int M>
+struct K5Geo {
+  static constexpr int E = M < 16 ? M : 16;
+  static constexpr int T = M / E;
+  static constexpr int B = T < 32 ? 32 : T;
+  static constexpr int kLanes = T < 32 ? T : 32;
+};
+
+// The shared memory of block `rank` of this cluster, and the cluster
+// barrier: arrive (release) then wait (acquire) on shared memory across
+// the cluster's blocks.  A message of one block uses its own shared memory
+// and __syncthreads().  ``cluster_started`` is the arrive half of a split
+// barrier, whose wait (``cluster_wait``) returns once every block of the
+// cluster has started: before it, no block may touch a peer's shared
+// memory.
+template <int C, typename T>
+__device__ __forceinline__ T* peer(T* p, unsigned int rank) {
+  if constexpr (C == 1) return p;
+  else return cg::this_cluster().map_shared_rank(p, rank);
+}
+template <int C>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (C == 1) __syncthreads();
+  else cg::this_cluster().sync();
+}
+__device__ __forceinline__ void cluster_started() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" : : : "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" : : : "memory");
+}
+
+// K5: grid rows * C blocks in clusters of C; block `rank` of the cluster of
+// row r holds coordinates [rank * M, (rank + 1) * M) of the d = C * M of
+// row r.  ``rot`` (nullable) receives the rotated message for checking.
+//
+// The exchange pushes: the chunk's last stage stores each output into the
+// shared memory g[] of the block that owns its column (slot k * S + j % S
+// for chunk k), and each warp stores its partial sum of squares into every
+// block's parts[]; a cluster barrier follows each.  After the second no
+// block touches a peer's shared memory, so any block may exit.
+template <int M, int C, bool kPack>
+__global__ void __launch_bounds__(K5Geo<M>::B)
+rotate_encode_kernel(const float* __restrict__ ypad,
+                     const float* __restrict__ u, uint32_t seed, float scale,
+                     float s, float* __restrict__ norm,
+                     int8_t* __restrict__ out, float* __restrict__ rot) {
+  using G = K5Geo<M>;
+  constexpr int E = G::E, T = G::T, B = G::B;
+  constexpr int d = M * C;
+  constexpr int S = M / C;                 // columns of a block's slice
+  constexpr int NP = (S / 2 + B - 1) / B;  // column pairs a thread
+  constexpr int W = B / 32;                // warps a block
+  static_assert((NP * C * 2 & (NP * C * 2 - 1)) == 0, "a power of two");
+  static_assert(C == 1 || 64 * E <= M, "C > 1 pushes from a shared stage");
+  __shared__ __align__(16) float x[M];
+  __shared__ __align__(16) float g[C > 1 ? M : 1];
+  __shared__ float parts[C * W];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const unsigned int rank = C == 1 ? 0u : cg::this_cluster().block_rank();
+  const long long row = blockIdx.x / C;
+  const float* yr = ypad + row * d;
+  const float* ur = u + row * d;
+  const int col0 = (int)rank * S;
+  if constexpr (C > 1) cluster_started();
+
+  // u for the last phase, issued first: it lands while the stages run
+  float2 uv[NP][C];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int q = tid + i * B;
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (q < S / 2)
+        uv[i][k] = *reinterpret_cast<const float2*>(ur + k * M + col0 + 2 * q);
   }
-  // stage h: pair p = (j, t) with j = p / h, t = p % h holds
-  // (j*2h + t, j*2h + h + t); in place, each pair owned by one thread
-  for (int h = 1; h < d; h <<= 1) {
+
+  // this thread's E contiguous coordinates, sign-flipped
+  float v[E];
+  const int base = (int)rank * M + tid * E;
+  if (tid < T) {
+    if constexpr (E % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(yr + base)[q];
+        v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z,
+        v[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < E; ++r) v[r] = yr[base + r];
+    }
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const uint32_t z = mix32((uint32_t)(base + r) * 0x9E3779B9u + seed);
+      v[r] = __fmul_rn(v[r], (z & 1u) ? -1.f : 1.f);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = 0.f;
+  }
+
+  // stages h < E in registers
+#pragma unroll
+  for (int h = 1; h < E; h <<= 1)
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      if (!(r & h)) {
+        const float a = v[r], b = v[r + h];
+        v[r] = __fadd_rn(a, b);
+        v[r + h] = __fsub_rn(a, b);
+      }
+  // stages h = E * k, k < 32, across the lanes of a warp: the lane with bit
+  // k clear holds the pair's low coordinate
+#pragma unroll
+  for (int k = 1; k < G::kLanes; k <<= 1) {
+    const bool hi = lane & k;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[r], k);
+      v[r] = hi ? __fsub_rn(o, v[r]) : __fadd_rn(v[r], o);
+    }
+  }
+  if (tid < T) {
+    if constexpr (E % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q)
+        reinterpret_cast<float4*>(x + tid * E)[q] =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < E; ++r) x[tid * E + r] = v[r];
+    }
+  }
+  // stages 32 E <= h < M across warps, through shared memory; with C > 1
+  // the last (h = M/2) writes each output into its owner's g[]
+  constexpr int kInPlace = C > 1 ? M / 2 : M;
+#pragma unroll
+  for (int h = 32 * E; h < kInPlace; h <<= 1) {
     __syncthreads();
-    for (int p = threadIdx.x; p < (d >> 1); p += kRotThreads) {
+#pragma unroll
+    for (int p = tid; p < M / 2; p += B) {
       const int i0 = ((p & ~(h - 1)) << 1) | (p & (h - 1));
       const float a = x[i0], b = x[i0 + h];
       x[i0] = __fadd_rn(a, b);
       x[i0 + h] = __fsub_rn(a, b);
     }
   }
-  __syncthreads();
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < d; i += kRotThreads) {
-    const float r = __fmul_rn(x[i], scale);
-    x[i] = r;
-    acc += r * r;
-    if (rot != nullptr) rot[off + i] = r;
+  if constexpr (C > 1) {
+    __syncthreads();
+    cluster_wait();                        // every peer has started
+#pragma unroll
+    for (int p = tid; p < M / 2; p += B) {
+      const float a = x[p], b = x[p + M / 2];
+      const int q = p + M / 2;
+      peer<C>(g, p / S)[rank * S + p % S] = __fadd_rn(a, b);
+      peer<C>(g, q / S)[rank * S + q % S] = __fsub_rn(a, b);
+    }
   }
-  // block_sum's barrier also publishes every thread's x[] writes
-  const float tot = block_sum<kRotThreads>(acc);
-  if (threadIdx.x == 0) s_inv = inv_scale(tot, s, norm + blockIdx.x);
-  __syncthreads();
-  const float iv = s_inv;
-  if (kPack) {
-    int8_t* o = out + (long long)blockIdx.x * (d >> 1);
-    for (int j = threadIdx.x; j < (d >> 1); j += kRotThreads)
-      o[j] = pack_byte(qsgd_level(x[2 * j], ur[2 * j], iv),
-                       qsgd_level(x[2 * j + 1], ur[2 * j + 1], iv));
-  } else {
-    int8_t* o = out + off;
-    for (int i = threadIdx.x; i < d; i += kRotThreads)
-      o[i] = static_cast<int8_t>(qsgd_level(x[i], ur[i], iv));
+  cluster_sync<C>();                       // every chunk's stages are in
+
+  // the column pairs (j, j+1) of every chunk, the cross stages h = M, 2M,
+  // 4M (k-bit 0, 1, 2), then the scale
+  const float* src = C > 1 ? g : x;
+  float w[NP][C][2];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int q = tid + i * B;
+    if (q >= S / 2) continue;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float2 f = *reinterpret_cast<const float2*>(src + k * S + 2 * q);
+      w[i][k][0] = f.x, w[i][k][1] = f.y;
+    }
+#pragma unroll
+    for (int h = 1; h < C; h <<= 1)
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        if (!(k & h)) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = w[i][k][e], b = w[i][k + h][e];
+            w[i][k][e] = __fadd_rn(a, b);
+            w[i][k + h][e] = __fsub_rn(a, b);
+          }
+        }
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) w[i][k][e] = __fmul_rn(w[i][k][e], scale);
+    if (rot != nullptr)
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        *reinterpret_cast<float2*>(rot + row * d + k * M + col0 + 2 * q) =
+            make_float2(w[i][k][0], w[i][k][1]);
+  }
+
+  // the norm, in an order fixed by d: a tree over this thread's squares,
+  // the warp's shuffle tree, then the C * W warp partials, which every
+  // block holds after the barrier, in index order (lane l adds partials
+  // l, l + 32, ...; then an xor butterfly, which leaves the same bits in
+  // every lane)
+  float sq[NP * C * 2];
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sq[(i * C + k) * 2 + e] = tid + i * B < S / 2
+                                      ? __fmul_rn(w[i][k][e], w[i][k][e])
+                                      : 0.f;
+#pragma unroll
+  for (int h = 1; h < NP * C * 2; h <<= 1)
+#pragma unroll
+    for (int r = 0; r < NP * C * 2; r += 2 * h)
+      sq[r] = __fadd_rn(sq[r], sq[r + h]);
+  const float wsum = warp_sum(sq[0]);
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < C; ++k) peer<C>(parts, k)[rank * W + (tid >> 5)] = wsum;
+  cluster_sync<C>();                       // every partial is everywhere
+  float tot = 0.f;
+#pragma unroll
+  for (int i = lane; i < C * W; i += 32) tot = __fadd_rn(tot, parts[i]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    tot = __fadd_rn(tot, __shfl_xor_sync(0xffffffffu, tot, off));
+  float nr;
+  const float iv = inv_scale(tot, s, &nr);
+  if (rank == 0 && tid == 0) norm[row] = nr;
+
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int q = tid + i * B;
+    if (q >= S / 2) continue;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int lo = qsgd_level(w[i][k][0], uv[i][k].x, iv);
+      const int hi = qsgd_level(w[i][k][1], uv[i][k].y, iv);
+      const long long at = row * d + k * M + col0 + 2 * q;
+      if (kPack)
+        out[at >> 1] = pack_byte(lo, hi);
+      else
+        *reinterpret_cast<char2*>(out + at) =
+            make_char2((signed char)lo, (signed char)hi);
+    }
   }
 }
 
-template <bool kPack>
+template <int M, int C, bool kPack>
 int launch_rotate_encode(const float* ypad, const float* u, long long rows,
-                         int d, uint32_t seed, float scale, float s,
-                         float* norm, int8_t* out, float* rot,
-                         cudaStream_t st) {
-  const size_t smem = (size_t)d * sizeof(float);
-  if (smem > (size_t)kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rotate_encode_kernel<kPack>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();   // clear it: the next launch must not see it
-      return (int)err;
-    }
-  }
-  rotate_encode_kernel<kPack><<<(unsigned int)rows, kRotThreads, smem, st>>>(
-      ypad, u, d, seed, scale, s, norm, out, rot);
-  return (int)cudaGetLastError();
+                         uint32_t seed, float scale, float s, float* norm,
+                         int8_t* out, float* rot, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)(rows * C));
+  cfg.blockDim = dim3(K5Geo<M>::B);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, rotate_encode_kernel<M, C, kPack>, ypad, u, seed, scale, s, norm,
+      out, rot);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// the instantiations: chunks of 2 .. 4096 alone (d < 2^13), chunks of 4096
+// in clusters of 2, 4, 8 and 16 (d = 2^13 .. 2^16; 16 exceeds the portable
+// cluster size, so the card refuses it)
+template <bool kPack>
+int dispatch_rotate_encode(const float* ypad, const float* u, long long rows,
+                           int d, int c, uint32_t seed, float scale, float s,
+                           float* norm, int8_t* out, float* rot,
+                           cudaStream_t st) {
+#define K5_CASE(M_, C_)                                                     \
+  if (d == (M_) * (C_) && c == (C_))                                        \
+    return launch_rotate_encode<M_, C_, kPack>(ypad, u, rows, seed, scale, \
+                                               s, norm, out, rot, st);
+  K5_CASE(2, 1) K5_CASE(4, 1) K5_CASE(8, 1) K5_CASE(16, 1) K5_CASE(32, 1)
+  K5_CASE(64, 1) K5_CASE(128, 1) K5_CASE(256, 1) K5_CASE(512, 1)
+  K5_CASE(1024, 1) K5_CASE(2048, 1) K5_CASE(4096, 1) K5_CASE(4096, 2)
+  K5_CASE(4096, 4) K5_CASE(4096, 8) K5_CASE(4096, 16)
+#undef K5_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -198,17 +447,18 @@ int fused_encode(const float* y, const float* u, long long rows, long long n,
   return (int)cudaGetLastError();
 }
 
-// K5: ypad, u (rows, d) f32, d a power of two -> norm (rows,) f32 and out
-// (rows, d/2) packed bytes or (rows, d) int8 levels; rot (rows, d) f32
-// receives the rotated message when not null.
+// K5: ypad, u (rows, d) f32, d a power of two, both 16-byte aligned ->
+// norm (rows,) f32 and out (rows, d/2) packed bytes or (rows, d) int8
+// levels; c is the cluster size (the wrapper's k5_cluster(d)); rot
+// (rows, d) f32 receives the rotated message when not null.
 int fused_rotate_encode(const float* ypad, const float* u, long long rows,
-                        int d, unsigned int seed, float scale, float s,
-                        int pack, float* norm, int8_t* out, float* rot,
-                        cudaStream_t st) {
-  return pack ? launch_rotate_encode<true>(ypad, u, rows, d, seed, scale, s,
-                                           norm, out, rot, st)
-              : launch_rotate_encode<false>(ypad, u, rows, d, seed, scale, s,
-                                            norm, out, rot, st);
+                        int d, int c, unsigned int seed, float scale,
+                        float s, int pack, float* norm, int8_t* out,
+                        float* rot, cudaStream_t st) {
+  return pack ? dispatch_rotate_encode<true>(ypad, u, rows, d, c, seed, scale,
+                                             s, norm, out, rot, st)
+              : dispatch_rotate_encode<false>(ypad, u, rows, d, c, seed,
+                                              scale, s, norm, out, rot, st);
 }
 
 }  // extern "C"

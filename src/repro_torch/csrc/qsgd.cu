@@ -12,6 +12,9 @@
 // All three are streaming passes: one read of each input, one write of each
 // output, a few flops per element, so device memory bandwidth bounds them at
 // large n.  At the model's D = 101,770 they are bound by launch latency.
+// K3 is therefore one 16-byte item a thread (x as float4, four levels as
+// an int4 or a char4), both loads issued before any use, over one wave of
+// every SM at D: one round trip to memory a thread.
 // The TPU version carried the sum of squares from one grid step to the next
 // in a (1,1) output block; blocks here run in parallel and in no order, so
 // K1 is one launch whose last block of each row (by an integer ticket)
@@ -77,20 +80,84 @@ quantize_kernel(const float* __restrict__ y, const float* __restrict__ u,
 }
 
 // K3: out = x + (gamma * lvl) * scale with scale = norm / s, the TPU
-// kernel's order (qsgd.py:100).  Out of place: x is the round's model
-// vector, which the caller still holds.
+// kernel's order (qsgd.py:100), each product and the sum rounded once.
+// Out of place: x is the round's model vector, which the caller still
+// holds.
+__device__ __forceinline__ float apply1(float x, float l, float gamma,
+                                        float scale) {
+  return __fadd_rn(x, __fmul_rn(__fmul_rn(gamma, l), scale));
+}
+
+constexpr int kApplyThreads = 128;
+
+// four levels beside one float4 of x: an int4 of int32, a char4 of int8
+template <typename T> struct Lvl4;
+template <> struct Lvl4<int32_t> { using V = int4; };
+template <> struct Lvl4<int8_t> { using V = char4; };
+
+// norm / s, computed once this thread's loads are issued: the division
+// waits for the norm's load, and a warp issues in order, so a division
+// placed first would hold every load back by one round trip to memory.
+// The empty asm keeps the compiler from hoisting it.
+__device__ __forceinline__ float late_scale(float nrm, float s) {
+  asm volatile("" : "+f"(nrm) : : "memory");
+  return nrm / s;
+}
+
+// One 16-byte item a thread, in one wave at D (199 blocks), in many short
+// blocks at a streaming size (one wave of blocks looping over the items
+// measured slower there: scripts/kernel_variants.py, wave_loop).  Two branches, chosen from the pointers.  Vector branch:
+// x is peeled to a 16-byte boundary; an item is a float4 of x and the
+// matching 4 levels; the ragged ends (<= 3 elements before the body, <= 3
+// after) are one more element for threads 0-5, loaded with their item.  It
+// needs out and the levels in x's alignment phase.  Scalar branch, when
+// they are not (row r > 0 of a (rows, 101770) int32 level matrix starts 8
+// bytes off): an item is 4 consecutive elements, loaded one by one.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kApplyThreads)
 dequant_apply_kernel(const float* __restrict__ x, const T* __restrict__ lvl,
                      const float* __restrict__ norm, float s, float gamma,
                      long long n, float* __restrict__ out) {
-  const float scale = norm[0] / s;
+  using V = typename Lvl4<T>::V;
+  const float nrm = norm[0];
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float l = static_cast<float>(lvl[i]);
-    out[i] = __fadd_rn(x[i], __fmul_rn(__fmul_rn(gamma, l), scale));
+  long long head = (long long)(((16u - ((uintptr_t)x & 15u)) & 15u) >> 2);
+  if (head > n) head = n;
+  const bool vec = ((uintptr_t)(out + head) & 15u) == 0 &&
+                   ((uintptr_t)(lvl + head) & (sizeof(V) - 1)) == 0;
+  if (!vec) {
+    for (long long i = 4 * tid; i < n; i += 4 * stride) {
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < n) v[k] = make_float2(x[i + k], (float)lvl[i + k]);
+      const float scale = late_scale(nrm, s);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < n) out[i + k] = apply1(v[k].x, v[k].y, gamma, scale);
+    }
+    return;
   }
+  const long long nvec = (n - head) >> 2;
+  const long long end =
+      tid < head ? tid
+                 : (tid - head < ((n - head) & 3) ? (nvec << 2) + tid : -1);
+  float2 ev;
+  if (end >= 0) ev = make_float2(x[end], (float)lvl[end]);
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  const V* lv = reinterpret_cast<const V*>(lvl + head);
+  float4* ov = reinterpret_cast<float4*>(out + head);
+  for (long long i = tid; i < nvec; i += stride) {
+    const float4 a = xv[i];
+    const V b = lv[i];
+    const float scale = late_scale(nrm, s);
+    ov[i] = make_float4(apply1(a.x, (float)b.x, gamma, scale),
+                        apply1(a.y, (float)b.y, gamma, scale),
+                        apply1(a.z, (float)b.z, gamma, scale),
+                        apply1(a.w, (float)b.w, gamma, scale));
+  }
+  if (end >= 0) out[end] = apply1(ev.x, ev.y, gamma, late_scale(nrm, s));
 }
 
 template <typename T>
@@ -101,13 +168,15 @@ int launch_quantize(const float* y, const float* u, const float* inv,
   return (int)cudaGetLastError();
 }
 
+// K3's grid: one block per kApplyThreads items of 4 elements (199 blocks at
+// D = 101,770); the loop in the kernel only matters past 2^31 blocks.
 template <typename T>
 int launch_dequant_apply(const float* x, const T* lvl, const float* norm,
                          float s, float gamma, long long n, float* out,
                          cudaStream_t st) {
-  const unsigned int grid = grid_x(n, 4LL * kThreads, 8192u);
-  dequant_apply_kernel<T><<<grid, kThreads, 0, st>>>(x, lvl, norm, s, gamma,
-                                                     n, out);
+  const unsigned int grid = grid_x((n + 3) >> 2, kApplyThreads, 0x7FFFFFFFu);
+  dequant_apply_kernel<T><<<grid, kApplyThreads, 0, st>>>(x, lvl, norm, s,
+                                                          gamma, n, out);
   return (int)cudaGetLastError();
 }
 

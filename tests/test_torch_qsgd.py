@@ -192,6 +192,13 @@ def test_wrappers_refuse_other_devices_and_types():
     with pytest.raises(ValueError):
         K.qsgd_dequant_apply(torch.zeros(8), torch.zeros(8, dtype=torch.int8),
                              torch.ones(1), 16384, 0.1)   # int32 container
+    # a level row off x's alignment (row 1 of a (rows, 13) int32 matrix
+    # starts 52 bytes in) is valid: K3 takes it on its scalar branch
+    x = torch.linspace(-1, 1, 13)
+    lvl = torch.arange(-19, 20, dtype=torch.int32).reshape(3, 13)
+    norm = torch.tensor([2.5])
+    out = K.qsgd_dequant_apply(x, lvl[1], norm, 16384, 0.1)
+    assert torch.equal(out, K.dequant_apply_plain(x, lvl[1], norm, 16384, 0.1))
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 

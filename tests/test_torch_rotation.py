@@ -82,13 +82,86 @@ def test_rotation_bitwise(n, seed):
     r_j, back_j = ref[seed]
     d = PR.next_pow2(n)
     assert d == RR.next_pow2(n)
-    np.testing.assert_array_equal(PR.rademacher(d, seed).numpy(),
+    np.testing.assert_array_equal(PR.rademacher(d, seed, device="cpu").numpy(),
                                   np.asarray(RR.rademacher(d, seed)))
     r_p = PR.rotate(torch.from_numpy(y), seed)
     assert r_p.shape == (d,)
     np.testing.assert_array_equal(_bits(r_p.numpy()), _bits(r_j))
     np.testing.assert_array_equal(
         _bits(PR.unrotate(r_p, seed, n).numpy()), _bits(back_j))
+
+
+def test_rademacher_defaults_to_the_card():
+    """``rademacher`` runs on the card unless asked for the CPU: with no
+    card a call without a device raises, with one the signs lie there."""
+    assert PR.rademacher(8, 5, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert PR.rademacher(8, 5).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PR.rademacher(8, 5)
+
+
+def _k5_split(x, order="kernel"):
+    """K5's data split on the CPU (``csrc/fused_encode.cu``): the message
+    of d coordinates in c = k5_cluster(d) chunks of m, a block's; in a
+    chunk, e = min(16, m) contiguous coordinates a thread, the stages
+    h < e in its registers, then h = e, 2e, ... < m across its threads
+    (warp shuffles, then shared memory); then the gather of column j over
+    the chunks, x[k * m + j] for k < c, and the cross stages h = m, 2m, 4m
+    on it.  ``order="cross-first"`` runs the cross stages before the
+    chunks' own: the same butterflies in another order."""
+    d = x.shape[-1]
+    c = FE.k5_cluster(d)
+    m = d // c
+    e = min(16, m)
+
+    def local(t):
+        t = PR.fwht(t.reshape(c, m // e, e))                  # h < e
+        return PR.fwht(t.transpose(1, 2)).transpose(1, 2).reshape(c, m)
+
+    def cross(t):
+        return PR.fwht(t.reshape(c, m).t()).t()               # h >= m
+
+    t = cross(local(x)) if order == "kernel" else local(cross(x))
+    return t.reshape(d)
+
+
+@pytest.mark.parametrize("d", [2**k for k in range(1, 16)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_k5_split_is_the_plain_rotation(d, seed):
+    """The kernel's split of the butterflies over registers, lanes, warps
+    and the blocks of a cluster gives the plain rotation bit for bit,
+    because it runs the stages in the plain FWHT's order h = 1, 2, 4, ...;
+    where the message spans several blocks, the same butterflies with the
+    cross-block stages first give other bits: the stage order, not the
+    layout, is what keeps K5 bitwise."""
+    y, _ = _draw(d, seed=d + 7)
+    yt = torch.from_numpy(y)
+    signed = yt * PR.rademacher(d, seed, device="cpu")
+    scale = float(np.float32(d ** -0.5))
+    want = PR.rotate(yt, seed)
+    got = _k5_split(signed) * scale
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    if FE.k5_cluster(d) > 1:
+        other = _k5_split(signed, order="cross-first") * scale
+        assert not np.array_equal(_bits(other.numpy()), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("d", [2**k for k in range(1, 16)])
+def test_k5_cluster_size(d):
+    """K5's cluster size is a function of d alone that divides d, at most
+    the portable 8 blocks; each block's chunk fits the 227 KiB a block may
+    have (16 KiB at most), and csrc/fused_encode.cu instantiates the
+    kernel for that (chunk, cluster) pair."""
+    c = FE.k5_cluster(d)
+    assert c == FE.k5_cluster(d) and 1 <= c <= 8 and d % c == 0
+    assert d // c <= FE.K5_CHUNK and 4 * (d // c) <= 227 * 1024
+    with open(f"{build.CSRC_DIR}/fused_encode.cu") as f:
+        cases = {(int(a), int(b)) for a, b in
+                 re.findall(r"K5_CASE\((\d+), (\d+)\)", f.read())}
+    assert (d // c, c) in cases
+    assert FE._k5_args(torch.zeros(2, d), 5, 7, True)[:3] == (2, d, c)
 
 
 def test_rotation_batches_rows():
