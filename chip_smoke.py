@@ -21,13 +21,22 @@ Phases, each of which fails the script on error:
      {0, 5, 2^32-1}, each at s = 7 packed and s = 127 unpacked: the norm
      within rtol 1e-6, the payload byte-identical to the plain quantize
      (+ pack) fed the kernel's own norm, K1's norm bitwise K4's, K5's
-     rotated rows bitwise the plain rotate; a launch the card refuses (K5
-     at d = 2^16 asks for a cluster of 16 blocks, above the portable 8)
-     raises and leaves no error behind.  Then each kernel's time
+     rotated rows bitwise the plain rotate; K4's two routes (one
+     cooperative launch, two launches) bitwise each other at (10, D) and
+     (1, 2^17) and on row 1 of a (10, D + 1) matrix (an odd head) with u
+     in y's phase and in another, a captured K4 replayed twice with the
+     same bytes and a fresh exchange generation each; K5 through
+     ``encode_payload`` with u 4 bytes past a 16-byte boundary; launches
+     the card refuses (K5 at d = 2^16 asks for a cluster of 16 blocks,
+     above the portable 8; K4 in one cooperative launch of more blocks
+     than the card holds at once) raise and leave no error behind.  Then
+     each kernel's time
      beside its plain version's, its byte bound and a one-call PyTorch
      yardstick where one exists (device times from CUDA-graph replay,
      beside the eager call's time with its host work);
-  3. main path: the README quickstart loop on the card —
+  3. main path: the README quickstart loop on the card (the task on
+     ``cuda:0``, the run on the default ``"cuda"``; and the converse for
+     one round) —
      ``MNISTTask.estimate_constants`` -> ``Scenario.optimize()`` ->
      ``Scenario.run(plan, max_rounds=400)`` at full width (D = 101,770,
      N = 10, s0 = sn = 2^14) — with the kernels' launch counters set to 0
@@ -47,7 +56,8 @@ Phases, each of which fails the script on error:
      counters read around the payload calls alone; each payload is held
      against the plain versions on the same y and u (the norm within
      rtol 1e-6, the bytes identical given the kernel's norm) and against
-     ``decode(*encode(y, u))``;
+     ``decode(*encode(y, u))``; K4's calls by route are logged, at least
+     one of them in one launch;
   6. flash decode (K6) against its plain version on the card, within
      rtol/atol 1e-5 (both accumulate in f32; a bf16 output within one bf16
      ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
@@ -56,7 +66,9 @@ Phases, each of which fails the script on error:
      {1, 7, 16}, dh 64, ragged C (1000, 777, 3001), C in {1, 5, 9} (fewer
      positions than splits of the cache), one valid token, an all-masked
      row and a row valid only inside one block's range; each shape called
-     twice, the outputs bitwise equal.  Then its time at the serving, the
+     twice, the outputs bitwise equal; q (serving shape) and q, k, v
+     (G = 7 ragged) one element past a 16-byte boundary, bitwise the
+     aligned call.  Then its time at the serving, the
      gemma3-width and the G = 16 shapes beside its byte bound, its plain
      version and ``scaled_dot_product_attention``, with the blocks the
      card keeps resident;
@@ -431,11 +443,43 @@ def k5_rotation(y, u, s, seed, pack: bool):
     return rot
 
 
+def k4_forced(y, u, s, pack: bool, one_launch: bool):
+    """K4 through its C entry point on a forced route (the test-only
+    argument the wrapper never takes; it picks the route by ``k4_route``):
+    a launch for the check, not counted.  -> (payload, norm)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+    rows, n = y.shape
+    P = K.sumsq_blocks(n)
+    partials = torch.empty(rows * P, device=y.device)
+    norm = torch.empty(rows, device=y.device)
+    out = torch.empty(rows, (n + 1) // 2 if pack else n, dtype=torch.int8,
+                      device=y.device)
+    build.launch("fused_encode", "fused_encode", FE._SIGS["fused_encode"],
+                 y.data_ptr(), u.data_ptr(), rows, n, P, float(s), int(pack),
+                 int(one_launch), partials.data_ptr(),
+                 FE._k4_scratch(y.device).data_ptr(), norm.data_ptr(),
+                 out.data_ptr())
+    return out, norm
+
+
+def k4_bytes(n: int, rows: int, pack: bool, route: str) -> int:
+    """The bytes K4 moves on ``route``: y and u read once and the payload
+    written on the one-launch route (8.5n packed / 9n), y read twice on the
+    two-launch route (12.5n / 13n); plus the norms."""
+    e = rows * n
+    out = rows * ((n + 1) // 2 if pack else n)
+    return (8 if route == "one_launch" else 12) * e + out + 4 * rows
+
+
 def phase_fused_kernels(dev) -> dict:
     """K4 and K5 against their plain versions: the norm within rtol 1e-6,
     the payload byte-identical given the kernel's norm, K5's rotation
     bitwise; on the card, then their times."""
     import torch
+    from repro_torch.compress import make_codec
     from repro_torch.compress.rotation import rotate
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_encode as FE
@@ -455,10 +499,13 @@ def phase_fused_kernels(dev) -> dict:
                                  f"version at {bad} bytes ({what})")
         return float((norm - norm_p).abs().max())
 
+    cap = FE._capacity(dev) if dev.type == "cuda" else 0
     for rows in (1, 10):
+        routes = {}
         for n in K4_NS:
             y = torch.randn(rows, n, generator=gen, device=dev) * 3.0
             u = torch.rand(rows, n, generator=gen, device=dev)
+            routes.setdefault(FE.k4_route(rows, n, cap), []).append(n)
             for s, pack in FUSED_S:
                 out, norm = FE.fused_encode(y, u, s, pack)
                 norm_p = K.sumsq_plain(y, s)[1]
@@ -474,7 +521,9 @@ def phase_fused_kernels(dev) -> dict:
                     worst["fused_encode"] = max(worst["fused_encode"], err)
         log(f"[fused] K4 rows={rows}: n in {K4_NS}, s=7 packed and s=127 "
             f"unpacked agree with the plain version; K1's norm is K4's bit "
-            f"for bit")
+            f"for bit; routes (capacity {cap} blocks) {routes}")
+    if dev.type == "cuda":
+        k4_route_checks(dev, gen, check)
     for rows in (1, 10):
         for d in K5_DS:
             y = torch.randn(rows, d, generator=gen, device=dev) * 3.0
@@ -524,10 +573,31 @@ def phase_fused_kernels(dev) -> dict:
     FE.fused_rotate_encode(y, torch.rand(1, 1024, device=dev), 7, 0, True)
     torch.cuda.synchronize()                 # the refusal left no error
 
+    # K5 through encode_payload with u a view 4 bytes past a 16-byte
+    # boundary (the wrapper hands the kernel an aligned copy)
+    codec = make_codec(7, wire="int4", kind="rotated", backend="cuda")
+    for d in (1000, 1 << 15):
+        y = torch.randn(d, generator=gen, device=dev) * 3.0
+        m = codec.padded_dim(d)
+        u = torch.rand(m + 1, generator=gen, device=dev)[1:]
+        before = FE.LAUNCHES["fused_rotate_encode"]
+        payload, norm, _ = codec.encode_payload(y, u)
+        msg = rotate(y, codec.seed).reshape(1, m)
+        if u.data_ptr() % 16 == 0 or \
+                FE.LAUNCHES["fused_rotate_encode"] != before + 1:
+            raise AssertionError("K5 did not launch on an unaligned u")
+        check("K5", payload.reshape(1, -1), norm.reshape(1),
+              K.sumsq_plain(msg, 7)[1],
+              payload_given_norm(msg, u.reshape(1, m), 7, norm.reshape(1),
+                                 True), f"d={d}, u off a 16-byte boundary")
+    log("[fused] K5 via encode_payload with u 4 bytes past a 16-byte "
+        "boundary (d 1000, 2^15): agrees with the plain version")
+
     main = {}
     for name, rows, n, s, pack in (
             ("fused_encode", 10, MAIN_D, 7, True),
             ("fused_encode", 10, 1 << 17, 7, True),
+            ("fused_encode", 1, 1 << 20, 7, True),
             ("fused_encode", 1, 1 << 22, 7, True),
             ("fused_encode", 1, 1 << 22, 127, False),
             ("fused_rotate_encode", 1, 1024, 7, True),
@@ -538,7 +608,7 @@ def phase_fused_kernels(dev) -> dict:
         e = rows * n
         out_bytes = rows * ((n + 1) // 2 if pack else n)
         # each input read once, each output written once (the contract's
-        # bound); K4 reads y twice, so its traffic is 12.5n packed / 13n
+        # bound); K4's two-launch route reads y twice
         nbytes = 8 * e + out_bytes + 4 * rows
         if name == "fused_encode":
             kern = (lambda y=y, u=u, s=s, pack=pack:
@@ -546,7 +616,10 @@ def phase_fused_kernels(dev) -> dict:
             plain = (lambda y=y, u=u, s=s, pack=pack:
                      FE.fused_encode_plain(y, u, s, pack))
             ops = 8 * e
-            model = f"traffic model 12.5n/13n: {(nbytes + 4 * e) / HBM_BYTES_PER_S * 1e6:.2f} us"
+            route = FE.k4_route(rows, n, FE._capacity(dev))
+            model = (f"route {route}, {rows} x {K.sumsq_blocks(n)} blocks, "
+                     f"traffic model {'8.5n/9n' if route == 'one_launch' else '12.5n/13n'}: "
+                     f"{k4_bytes(n, rows, pack, route) / HBM_BYTES_PER_S * 1e6:.2f} us")
         else:
             kern = (lambda y=y, u=u, s=s, pack=pack:
                     FE.fused_rotate_encode(y, u, s, 5, pack))
@@ -570,6 +643,96 @@ def phase_fused_kernels(dev) -> dict:
     return {"worst": worst, "main": main}
 
 
+def k4_route_checks(dev, gen, check) -> None:
+    """K4 on the card beyond the wrapper's own route: both routes bitwise
+    each other; rows off y's 16-byte phase (odd heads) and u in another
+    phase than y, on both routes; a captured K4 replayed twice with the
+    same bytes and a fresh exchange generation each; a one-launch grid
+    the card cannot hold at once refused with an error."""
+    import torch
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+
+    def both_routes(y, u, what):
+        for s, pack in FUSED_S:
+            (o1, n1), (o2, n2) = (k4_forced(y, u, s, pack, one)
+                                  for one in (True, False))
+            check("K4 one-launch", o1, n1, K.sumsq_plain(y, s)[1],
+                  payload_given_norm(y, u, s, n1, pack), what)
+            if not (torch.equal(o1, o2) and torch.equal(
+                    n1.view(torch.int32), n2.view(torch.int32))):
+                raise AssertionError(f"K4's routes differ ({what}, s={s})")
+            out, norm = FE.fused_encode(y, u, s, pack)    # the wrapper's
+            if not (torch.equal(out, o1) and torch.equal(norm, n1)):
+                raise AssertionError(f"K4's wrapper differs from its "
+                                     f"routes ({what}, s={s})")
+
+    for rows, n in ((10, MAIN_D), (1, 1 << 17)):
+        y = torch.randn(rows, n, generator=gen, device=dev) * 3.0
+        both_routes(y, torch.rand(rows, n, generator=gen, device=dev),
+                    f"({rows}, {n})")
+    # row 1 of a (10, 101771) matrix starts 3 floats past a 16-byte
+    # boundary (head 1); u once in y's phase, once 1 float past a boundary
+    n = MAIN_D + 1
+    y = torch.randn(10, n, generator=gen, device=dev)[1:2]
+    u_same = torch.rand(10, n, generator=gen, device=dev)[1:2]
+    u_other = torch.rand(n + 1, generator=gen, device=dev)[1:].view(1, n)
+    for u, what in ((u_same, "u in y's phase"), (u_other, "u in another")):
+        both_routes(y, u, f"row 1 of (10, {n}), head "
+                    f"{(4 - y.data_ptr() // 4 % 4) % 4}, {what} phase")
+    log(f"[fused] K4: one-launch and two-launch routes bitwise equal at "
+        f"(10, {MAIN_D}), (1, 2^17) and row 1 of (10, {n}) with u in y's "
+        f"phase and in another")
+
+    # a captured K4 replayed twice: the same bytes, a new generation each
+    y = torch.randn(10, MAIN_D, generator=gen, device=dev)
+    u = torch.rand(10, MAIN_D, generator=gen, device=dev)
+    eager, eager_norm = FE.fused_encode(y, u, 7, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FE.fused_encode(y, u, 7, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, norm = FE.fused_encode(y, u, 7, True)
+    sync = FE._k4_scratch(dev)[:1].view(torch.int32)   # generation, count
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        before = sync.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append((out.clone(), norm.clone()))
+        if int(sync[1]) != 0 or int(sync[0]) != int(before[0]) + 1:
+            raise AssertionError(f"a replayed K4 left its exchange at "
+                                 f"{sync.tolist()} (was {before.tolist()})")
+    if not all(torch.equal(o, eager) and torch.equal(nm, eager_norm)
+               for o, nm in replays):
+        raise AssertionError("a replayed K4 differs from the eager call")
+    del graph
+    log(f"[fused] K4 ({FE.k4_route(10, MAIN_D, FE._capacity(dev))}) "
+        f"captured in a CUDA graph: two replays bitwise the eager call, each "
+        f"a new generation with its block count back to 0")
+
+    # a one-launch grid the card cannot hold at once is refused (2^22:
+    # 1,024 blocks, the most the kernel's thread map takes)
+    n = 1 << 22
+    blocks = K.sumsq_blocks(n)
+    if blocks > FE._capacity(dev):
+        y = torch.zeros(1, n, device=dev)
+        try:
+            k4_forced(y, y, 7, True, True)
+        except RuntimeError as e:
+            log(f"[fused] K4 one-launch at {blocks} blocks (capacity "
+                f"{FE._capacity(dev)}) refused: {e}")
+        else:
+            raise AssertionError("a cooperative K4 launch above the card's "
+                                 "resident blocks did not raise")
+        FE.fused_encode(y, y, 7, True)
+        torch.cuda.synchronize()             # the refusal left no error
+
+
 def phase_main_path() -> dict:
     import numpy as np
     import torch
@@ -577,7 +740,9 @@ def phase_main_path() -> dict:
     from repro_torch.core.genqsgd import GenQSGD, flatten_like
 
     t0 = time.perf_counter()
-    task = MNISTTask(device="cuda")
+    # a task on cuda:0 under the run's default device="cuda" (and the
+    # converse below): one card, whichever way it is named
+    task = MNISTTask(device="cuda:0")
     consts = task.estimate_constants(N=10, n_iters=120)
     torch.cuda.synchronize()
     log(f"[main] constants L={consts.L:.4g} sigma={consts.sigma:.4g} "
@@ -594,6 +759,10 @@ def phase_main_path() -> dict:
 
     rounds = min(plan.K0, 400)
     scenario.run(plan, task=task, max_rounds=2)        # warm-up, not counted
+    scenario.run(plan, task=MNISTTask(device="cuda"), max_rounds=1,
+                 device="cuda:0")
+    log("[main] Scenario.run takes a task on cuda:0 for device='cuda' and a "
+        "task on 'cuda' for device='cuda:0'")
     reset_launches()
     report = scenario.run(plan, task=task, max_rounds=rounds)
     launches = read_launches()
@@ -761,6 +930,7 @@ def phase_payload(deltas) -> dict:
     from repro_torch.compress import FUSED_ROTATE_MAX_DIM, make_codec
     from repro_torch.compress.rotation import rotate
     from repro_torch.compress.wire import unpack_int4
+    from repro_torch.kernels import fused_encode as FE
     from repro_torch.kernels import qsgd as K
 
     dev = deltas.device
@@ -795,13 +965,18 @@ def phase_payload(deltas) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = read_launches()
+    routes = dict(FE.ROUTES)
     if launches != want:
         raise AssertionError(f"payload launches {launches} != expected "
                              f"{want}")
     for name in ("fused_encode", "fused_rotate_encode"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the payload path")
-    log(f"[payload] {len(cases)} payloads, launches {launches}")
+    if sum(routes.values()) != launches["fused_encode"] or \
+            (dev.type == "cuda" and routes["one_launch"] == 0):
+        raise AssertionError(f"K4's routes on the payload path: {routes}")
+    log(f"[payload] {len(cases)} payloads, launches {launches}, K4 by route "
+        f"{routes}")
 
     for (kind, wire, s, codec, name, y, u, m), (payload, norm, nbits, dec) \
             in zip(cases, out):
@@ -980,6 +1155,34 @@ def phase_flash_decode(dev) -> dict:
     log("[k6] flash decode agrees with its plain version at every shape")
     if dev.type != "cuda":
         return {"worst": {"flash_decode": worst}, "main": {}}
+
+    # inputs one element past a 16-byte boundary: q at the serving shape,
+    # q, k and v at a ragged one; the kernel runs on aligned copies, so the
+    # result is bitwise the aligned call's
+    def off(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:] \
+            .view(t.shape).copy_(t)
+
+    for (name, B, C, KV, G, dh, qt, kvt, mask), which in (
+            (K6_SHAPES[0], "q"), (K6_SHAPES[5], "qkv")):
+        q, k, v, valid = k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
+        args = [off(t) if c in which else t for t, c in zip((q, k, v), "qkv")]
+        before = FD.LAUNCHES["flash_decode"]
+        out = FD.flash_decode(*args, valid)
+        want = FD.flash_decode(q, k, v, valid)
+        torch.cuda.synchronize()
+        if FD.LAUNCHES["flash_decode"] != before + 2 or not all(
+                t.data_ptr() % 16 for t, c in zip(args, "qkv") if c in which):
+            raise AssertionError("K6 did not launch on the unaligned views")
+        if not torch.equal(out.float().view(torch.int32),
+                           want.float().view(torch.int32)):
+            raise AssertionError(f"K6 {name}: unaligned {which} differs from "
+                                 f"the aligned call")
+        rtol = K6_TOL if qt == "f32" else 2.0 ** -7
+        torch.testing.assert_close(out.float(), FD.flash_decode_plain(
+            q, k, v, valid).float(), rtol=rtol, atol=K6_TOL)
+        log(f"[k6] {name}: {which} one element past a 16-byte boundary: "
+            f"bitwise the aligned call, agrees with the plain version")
 
     main = {}
     for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:

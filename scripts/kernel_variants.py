@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Variants of the port's flash decode (K6), QSGD norm (K1), dequant-apply
-(K3) and rotate-encode (K5) kernels on one CUDA card: each variant is the
-committed source with a textual patch, or an earlier design carried here
-as source text, built with nvcc into ``build/variants/`` and timed beside
-the others in one process, in turns (each variant, then each again in
-reverse order).
+(K3), payload encode (K4) and rotate-encode (K5) kernels on one CUDA card:
+each variant is the committed source with a textual patch, or an earlier
+design carried here as source text, built with nvcc into
+``build/variants/`` and timed beside the others in one process, in turns
+(each variant, then each again in reverse order).
 
-    python3 scripts/kernel_variants.py [--kernels k1,k3,k5,k6] [--only NAME,...]
+    python3 scripts/kernel_variants.py [--kernels k1,k3,k4,k5,k6] [--only NAME,...]
 
 K6, at qwen3-1.7b's serving shape (q (8, 8, 2, 128) f32, cache
 (8, 4096, 8, 128) bf16), at gemma3 width (4 kv heads, dh 256) and at
@@ -42,6 +42,37 @@ K3, at (101,770,) int32 levels (the server apply; also row 1 of a
   launch_floor   ``final`` with an empty kernel body, at the same grid
   wave_loop      ``final`` on one wave of the card (the occupancy query's
                  blocks) with a grid-stride loop of 4 vectors a trip
+K4, at (10, 101,770), (10, 2^17), (1, 2^18), (1, 2^19), (1, 2^20) and
+(1, 2^22) f32 -> int4 (s = 7) and (1, 2^22) -> int8 (s = 127):
+  final          ``csrc/fused_encode.cu`` as committed, on the route the
+                 wrapper takes (one cooperative launch where the grid fits
+                 the card at once, else two launches)
+  one_launch, two_launch  ``final`` forced onto its one-launch route (where
+                 the grid fits the card at once) or its two-launch route
+                 (K1's partials, then a quantize: of coordinate pairs for
+                 packed rows, of 16-byte loads for unpacked ones)
+  two_launch_vec the two-launch route with the 16-byte quantize for packed
+                 rows too
+  prior_k4       the design it replaces: K1's partials, then a grid-stride
+                 quantize of 4-byte loads reading y again
+  no_coop        the one launch without the cooperative attribute (a plain
+                 launch of the same grid)
+  launch_floor   ``final``'s one launch with an empty kernel body, at the
+                 same grid, cooperative
+  warp_poll      the one launch with warp 0 alone reading the row's slots,
+                 each lane in turn, and summing them in sum_partials' order
+                 with shuffles (one block barrier fewer)
+  counter_barrier  the one launch with the exchange it replaced: a counter
+                 per row (fence, count, wait, fence), then the partials read
+                 again
+  quant_slots_2, quant_slots_4  ``two_launch_vec`` with 2 or 4 vectors a
+                 thread a trip (1)
+  quant_wide     ``two_launch_vec`` on up to 4,096 blocks a row (one wave
+                 of the card)
+  poll_backoff   ``final`` with a 64 ns sleep between two reads of a slot
+  Then, in a child process, ``no_coop`` at a grid the card cannot hold at
+  once ((1, 2^22): 1,024 blocks) must fail within seconds: the row
+  barrier's wait traps after 4 s instead of hanging the card.
 K5, at (1, 2^15) and (10, 2^15) f32 -> int4 (s = 7):
   final          ``csrc/fused_encode.cu`` as committed (a cluster of 8
                  blocks a message, distributed shared memory)
@@ -63,10 +94,11 @@ Times are device microseconds a call by CUDA-graph replay
 (``chip_smoke.device_ms``); outputs of ``final``, ``cluster_merge`` and
 ``row_bulk`` are held against the plain version within 1e-5, K1's norms
 bitwise against each other, K3's ``final`` and ``prior_k3`` outputs bitwise
-against each other, K5's ``final`` and ``prior_k5`` rotations bitwise
-against each other (their norms sum in other orders: the relative norm
-difference and the payload bytes that differ are printed).  Prints the
-card's name and power limit.
+against each other, K4's payloads and norms of every variant but
+``launch_floor`` bitwise against each other, K5's ``final`` and
+``prior_k5`` rotations bitwise against each other (their norms sum in
+other orders: the relative norm difference and the payload bytes that
+differ are printed).  Prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -413,6 +445,176 @@ K5 = {"final": [], "launch_floor": [(_K5_BODY, "  return;\n" + _K5_BODY)],
                (_K5_PARTS_IN, _K5_PARTS_IN.replace("parts[i]", "peer<C>(parts, i / W)[i % W]")
                 + "\n  cluster_sync<C>();")]}
 
+# ---- K4 ------------------------------------------------------------------------
+# the K4 the one-launch kernel replaces, as it was committed: K1's partials,
+# then a grid-stride quantize of scalar loads whose every block adds them
+_PRIOR_K4 = r"""
+#include "qsgd_common.cuh"
+namespace {
+__device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
+  return static_cast<int8_t>(static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4)));
+}
+__global__ void __launch_bounds__(kThreads)
+sumsq_partial_kernel(const float* __restrict__ y, long long n,
+                     float* __restrict__ partials) {
+  const float s = block_sumsq(y, n);
+  if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+template <bool kPack>
+__global__ void __launch_bounds__(kThreads)
+fused_quantize_kernel(const float* __restrict__ y, const float* __restrict__ u,
+                      const float* __restrict__ partials, int P, float s,
+                      long long n, float* __restrict__ norm,
+                      int8_t* __restrict__ out) {
+  __shared__ float s_inv;
+  const long long row = blockIdx.y;
+  const float tot = sum_partials(partials + row * P, P);
+  if (threadIdx.x == 0) {
+    float nr;
+    s_inv = inv_scale(tot, s, &nr);
+    if (blockIdx.x == 0) norm[row] = nr;
+  }
+  __syncthreads();
+  const float iv = s_inv;
+  const float* yr = y + row * n;
+  const float* ur = u + row * n;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (kPack) {
+    const long long m = (n + 1) >> 1;
+    int8_t* o = out + row * m;
+    for (long long j = first; j < m; j += stride) {
+      const long long i = j << 1;
+      const int lo = qsgd_level(yr[i], ur[i], iv);
+      const int hi = i + 1 < n ? qsgd_level(yr[i + 1], ur[i + 1], iv) : 0;
+      o[j] = pack_byte(lo, hi);
+    }
+  } else {
+    int8_t* o = out + row * n;
+    for (long long i = first; i < n; i += stride)
+      o[i] = static_cast<int8_t>(qsgd_level(yr[i], ur[i], iv));
+  }
+}
+}  // namespace
+extern "C" int fused_encode(const float* y, const float* u, long long rows,
+                            long long n, int P, float s, int pack,
+                            float* partials, float* norm, int8_t* out,
+                            cudaStream_t st) {
+  sumsq_partial_kernel<<<dim3((unsigned int)P, (unsigned int)rows), kThreads,
+                         0, st>>>(y, n, partials);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long items = pack ? (n + 1) >> 1 : n;
+  const dim3 grid(grid_x(items, 8LL * kThreads, 2048u), (unsigned int)rows);
+  if (pack)
+    fused_quantize_kernel<true><<<grid, kThreads, 0, st>>>(y, u, partials, P, s,
+                                                           n, norm, out);
+  else
+    fused_quantize_kernel<false><<<grid, kThreads, 0, st>>>(y, u, partials, P,
+                                                            s, n, norm, out);
+  return (int)cudaGetLastError();
+}
+"""
+_K4_BODY = "  __shared__ float s_inv;\n  __shared__ unsigned int s_gen;"
+_K4_COOP = "    cfg.numAttrs = 1;\n    const cudaError_t err = cudaLaunchKernelEx(\n        &cfg, fused_encode_kernel<kPack>"
+# the one launch's exchange as committed (every thread reads the row's
+# tagged slots sum_partials gives it), one warp reading them in turn, and
+# the design it replaced: a counter per row (fence, count, wait, fence),
+# then the partials read again
+_K4_EXCHANGE = """  unsigned long long* rs = slots + row * P;
+  if (threadIdx.x == 0) {
+    s_gen = gen;
+    store_slot(rs + blockIdx.x, part, gen);
+  }
+  __syncthreads();                      // s_gen; also between the block sums
+  gen = s_gen;
+  float acc = 0.f;
+  for (unsigned int i = threadIdx.x; i < P; i += kThreads)
+    acc += wait_slot(rs + i, gen);
+  const float tot = block_sum<kThreads>(acc);
+  if (threadIdx.x == 0) {
+    float nr;
+    s_inv = inv_scale(tot, s, &nr);
+    if (blockIdx.x == 0) norm[row] = nr;
+  }"""
+_K4_WARP_POLL = """  if (threadIdx.x < 32) {
+    unsigned long long* rs = slots + row * P;
+    gen = __shfl_sync(0xffffffffu, gen, 0);
+    if (threadIdx.x == 0) store_slot(rs + blockIdx.x, part, gen);
+    // lane l adds what threads 32w + l of sum_partials add, for each warp
+    // w in turn, then the warp trees as block_sum runs them
+    const int lane = threadIdx.x;
+    float ws[kThreads / 32];
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      float a = 0.f;
+      for (unsigned int i = 32 * w + lane; i < P; i += kThreads)
+        a += wait_slot(rs + i, gen);
+      ws[w] = warp_sum(a);
+    }
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const float t = __shfl_sync(0xffffffffu, ws[w], 0);
+      if (lane == w) v = t;
+    }
+    const float tot = warp_sum(v);
+    if (threadIdx.x == 0) {
+      float nr;
+      s_inv = inv_scale(tot, s, &nr);
+      if (blockIdx.x == 0) norm[row] = nr;
+    }
+  }"""
+_K4_COUNTER = """  unsigned int* counter = reinterpret_cast<unsigned int*>(slots + 32768) + row;
+  float* partials = reinterpret_cast<float*>(slots + 16384);
+  if (threadIdx.x == 0) {
+    partials[row * P + blockIdx.x] = part;
+    __threadfence();
+    atomicAdd(counter, 1u);
+    uint64_t t0 = 0;
+    while (load_acquire(counter) < P) {
+      const uint64_t now = globaltimer();
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > kWaitNs) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  const float tot = sum_partials(partials + row * P, (int)P);
+  if (threadIdx.x == 0) {
+    if (atomicAdd(counter, 1u) == 2 * P - 1) atomicExch(counter, 0u);
+    float nr;
+    s_inv = inv_scale(tot, s, &nr);
+    if (blockIdx.x == 0) norm[row] = nr;
+  }"""
+_K4_POLL = "    else if (now - t0 > kWaitNs) __trap();"
+_K4_QSLOTS = "constexpr int kQuantSlots = 1;"
+_K4_QWAVE = "(unsigned int)(per_row < 65535 ? per_row : 65535)"
+# the two-launch route's 16-byte quantize for packed rows too (``final``
+# takes PR 12's kernel of coordinate pairs there)
+_K4_VEC = [("  if constexpr (kPack) {\n    const dim3 grid(grid_x((n + 1) >> 1",
+            "  if constexpr (false) {\n    const dim3 grid(grid_x((n + 1) >> 1")]
+K4 = {"final": [],
+      "launch_floor": [(_K4_BODY, "  return;\n" + _K4_BODY)],
+      "no_coop": [(_K4_COOP, _K4_COOP.replace("numAttrs = 1", "numAttrs = 0"))],
+      "warp_poll": [(_K4_EXCHANGE, _K4_WARP_POLL)],
+      "counter_barrier": [(_K4_EXCHANGE, _K4_COUNTER)],
+      "poll_backoff": [(_K4_POLL, _K4_POLL + "\n    __nanosleep(64);")],
+      "two_launch_vec": _K4_VEC,
+      "quant_slots_2": _K4_VEC + [(_K4_QSLOTS, _K4_QSLOTS.replace("1;", "2;"))],
+      "quant_slots_4": _K4_VEC + [(_K4_QSLOTS, _K4_QSLOTS.replace("1;", "4;"))],
+      "quant_wide": _K4_VEC + [(_K4_QWAVE, "4096u")]}
+#: K4 variants on the two-launch route, and on the one-launch route only
+_K4_TWO = ("k4_two_launch", "k4_two_launch_vec", "k4_quant_slots_2",
+           "k4_quant_slots_4", "k4_quant_wide")
+_K4_ONE = ("k4_one_launch", "k4_launch_floor", "k4_no_coop", "k4_warp_poll",
+           "k4_counter_barrier", "k4_poll_backoff")
+#: K4's timed shapes (rows, n, s, pack)
+K4_SHAPES = ((10, 101770, 7, True), (10, 1 << 17, 7, True),
+             (1, 1 << 18, 7, True), (1, 1 << 19, 7, True),
+             (1, 1 << 20, 7, True), (1, 1 << 22, 7, True),
+             (1, 1 << 22, 127, False))
+
 
 def _patched(src: str, patches) -> str:
     for old, new in patches:
@@ -537,6 +739,130 @@ def run_k5(libs, stream, dev, gen) -> None:
                   (note if n == "k5_final" else ""), flush=True)
 
 
+def _k4_fn(lib, prior: bool):
+    ptr, ll, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                         ctypes.c_int)
+    fn = lib.fused_encode
+    fn.argtypes = ([ptr, ptr, ll, ll, i32, f32, i32] + ([] if prior else [i32])
+                   + [ptr] * (4 if prior else 5))
+    fn.restype = i32
+    return fn
+
+
+def run_k4(libs, built, stream, dev, gen) -> None:
+    """K4's variants in turns at K4_SHAPES: ``final`` on the wrapper's
+    route, ``final`` forced onto each route, ``prior_k4`` and the patched
+    variants (those of the one-launch route only where the grid fits);
+    the payloads and norms of all but ``launch_floor`` held bitwise
+    against each other."""
+    import torch
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+    k4 = [n for n in libs if n.startswith("k4_")]
+    fns = {n: _k4_fn(libs[n], n == "k4_prior_k4") for n in k4}
+    cap = ctypes.c_int(0)
+    cap_fn = libs["k4_final"].fused_encode_capacity
+    cap_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    if cap_fn(ctypes.addressof(cap), None):
+        raise RuntimeError("fused_encode_capacity failed")
+    regs = {}
+    func = ""
+    for line in built["k4_final"][1].splitlines():
+        if "Function properties for" in line:
+            func = line.split("for", 1)[1].strip()
+        elif "Used" in line and "registers" in line and "fused_" in func:
+            regs[func] = line.split("Used", 1)[1].split("registers")[0].strip()
+    print(f"[k4] one-launch capacity {cap.value} blocks; registers "
+          f"{sorted(regs.items())}", flush=True)
+    scratch = torch.zeros(65536, dtype=torch.int64, device=dev)
+    for rows, n, s, pack in K4_SHAPES:
+        y = torch.randn(rows, n, generator=gen, device=dev)
+        u = torch.rand(rows, n, generator=gen, device=dev)
+        P = K.sumsq_blocks(n)
+        route = FE.k4_route(rows, n, cap.value)
+        part = torch.empty(rows * P, device=dev)
+        res = {}
+        calls = {}
+        for name in k4 + ["k4_one_launch", "k4_two_launch"]:
+            lib_name = "k4_final" if name in ("k4_one_launch",
+                                              "k4_two_launch") else name
+            if lib_name not in fns:
+                continue
+            one = route == "one_launch" if name == "k4_final" else \
+                name in _K4_ONE
+            if name in _K4_ONE and rows * P > cap.value:
+                continue                    # the grid does not fit at once
+            nm = torch.empty(rows, device=dev)
+            out = torch.empty(rows, (n + 1) // 2 if pack else n,
+                              dtype=torch.int8, device=dev)
+            res[name] = (out, nm)
+            fn = fns[lib_name]
+            if name == "k4_prior_k4":
+                calls[name] = (lambda fn=fn, nm=nm, out=out: fn(
+                    y.data_ptr(), u.data_ptr(), rows, n, P, float(s),
+                    int(pack), part.data_ptr(), nm.data_ptr(),
+                    out.data_ptr(), stream()))
+            else:
+                calls[name] = (lambda fn=fn, nm=nm, out=out, one=one: fn(
+                    y.data_ptr(), u.data_ptr(), rows, n, P, float(s),
+                    int(pack), int(one), part.data_ptr(),
+                    scratch.data_ptr(), nm.data_ptr(), out.data_ptr(),
+                    stream()))
+        times = _in_turns(calls)
+        torch.cuda.synchronize()
+        ref = [res[m] for m in res if m != "k4_launch_floor"]
+        for o, nm in ref[1:]:
+            if not (torch.equal(o, ref[0][0]) and torch.equal(
+                    nm.view(torch.int32), ref[0][1].view(torch.int32))):
+                raise AssertionError(f"K4 variants differ at ({rows}, {n})")
+        if int(scratch[:1].view(torch.int32)[1]):
+            raise AssertionError("K4 left its block count nonzero")
+        what = f"({rows}, {n}) {'int4' if pack else 'int8'}"
+        for name, ts in times.items():
+            print(f"[k4] {what:20s} {name:20s} " +
+                  "  ".join(f"{t:6.2f} us" for t in ts) +
+                  (f"  (route {route}, {rows} x {P} blocks; every variant "
+                   f"but launch_floor bitwise equal)"
+                   if name == "k4_final" else ""), flush=True)
+
+
+def k4_trap() -> int:
+    """Launch K4's one-launch kernel without the cooperative attribute at
+    a grid the card cannot hold at once ((1, 2^22): 1,024 blocks): the
+    resident blocks wait at the row barrier for blocks that cannot start,
+    and must trap after 4 s with an error instead of hanging the card.
+    Run in a child process (the error ends its CUDA context); exit 0 when
+    the launch failed as it should."""
+    import time
+    import torch
+    from repro_torch.kernels import build
+    lib = ctypes.CDLL(os.path.join(build.BUILD_DIR, "variants",
+                                   "libk4_no_coop.so"))
+    fn = _k4_fn(lib, False)
+    n = 1 << 22
+    dev = torch.device("cuda")
+    y = torch.ones(1, n, device=dev)
+    part = torch.empty(1024, device=dev)
+    scratch = torch.zeros(65536, dtype=torch.int64, device=dev)
+    nm = torch.empty(1, device=dev)
+    out = torch.empty(1, n // 2, dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = fn(y.data_ptr(), y.data_ptr(), 1, n, 1024, 7.0, 1, 1,
+             part.data_ptr(), scratch.data_ptr(), nm.data_ptr(),
+             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"[k4] non-resident one-launch grid (1,024 blocks, no "
+              f"cooperative attribute): launch returned {err}, failed after "
+              f"{time.perf_counter() - t0:.2f} s: {str(e).splitlines()[0]}",
+              flush=True)
+        return 0
+    print("[k4] the non-resident grid did not fail", flush=True)
+    return 1
+
+
 def run_k6(libs, built, stream, dev, gen) -> None:
     import torch
     import chip_smoke as S
@@ -647,10 +973,14 @@ def run_k1(libs, stream, dev, gen) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="k1,k3,k5,k6",
+    ap.add_argument("--kernels", default="k1,k3,k4,k5,k6",
                     help="comma-separated kernel groups")
     ap.add_argument("--only", default="", help="comma-separated variants")
+    ap.add_argument("--k4-trap", action="store_true",
+                    help="(child process) the non-resident K4 launch")
     args = ap.parse_args()
+    if args.k4_trap:
+        return k4_trap()
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants.py: no CUDA device", file=sys.stderr)
@@ -680,6 +1010,11 @@ def main() -> int:
                  for n, p in K5.items() if pick(n)]
         if pick("prior_k5"):
             jobs.append(("k5_prior_k5", _PRIOR_K5))
+    if "k4" in groups:
+        jobs += [(f"k4_{n}", _patched(src["fused_encode"], p))
+                 for n, p in K4.items() if pick(n) or n == "final"]
+        if pick("prior_k4"):
+            jobs.append(("k4_prior_k4", _PRIOR_K4))
     with ThreadPoolExecutor(len(jobs)) as ex:
         built = dict(zip([name for name, _ in jobs], ex.map(_build, jobs)))
     libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
@@ -694,6 +1029,16 @@ def main() -> int:
         run_k3(libs, stream, dev, gen)
     if "k5" in groups:
         run_k5(libs, stream, dev, gen)
+    if "k4" in groups:
+        run_k4(libs, built, stream, dev, gen)
+        if "k4_no_coop" in libs:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--k4-trap"], capture_output=True,
+                                  text=True, timeout=120)
+            print(proc.stdout.strip(), flush=True)
+            if proc.returncode:
+                raise SystemExit(f"the K4 trap check failed:\n"
+                                 f"{proc.stderr[-2000:]}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -15,7 +15,7 @@ item in ``ROADMAP.md``.
 """
 from __future__ import annotations
 
-__all__ = ["not_ported", "resolve_device"]
+__all__ = ["not_ported", "resolve_device", "same_device"]
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -34,3 +34,20 @@ def resolve_device(device):
         raise RuntimeError(f"device={device!r} needs a CUDA card and none is "
                            f"available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device.  A CUDA device without an
+    index is the current card (``torch.cuda.current_device()``, asked only
+    when the other one has an index); a CPU device is the CPU whatever its
+    index."""
+    import torch
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    if a.index is not None and b.index is not None:
+        return False
+    return (a.index if b.index is None else b.index) == \
+        torch.cuda.current_device()

@@ -24,7 +24,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .. import not_ported, obs as _obs
+from .. import not_ported, obs as _obs, same_device
 from ..core.cost import EdgeSystem, energy_cost, time_cost
 from ..core.convergence import MLProblemConstants
 from ..core.genqsgd import GenQSGD, flatten_like
@@ -249,7 +249,7 @@ class Scenario:
     def _run_reference(self, plan, task, seed, max_rounds, eval_every,
                        device):
         task = MNISTTask(device=device) if task is None else task
-        if task.device != torch.device(device):
+        if not same_device(task.device, device):
             raise ValueError(f"task lives on {task.device}, the run was asked "
                              f"for device={device!r}")
         cfg = plan.to_genqsgd_config(max_K0=max_rounds, seed=seed)

@@ -1,7 +1,7 @@
 // Pieces shared by the QSGD kernels (qsgd.cu: K1-K3) and the one-pass
-// encodes (fused_encode.cu: K4, K5): the fixed-order block sum, the
-// per-block sum of squares of K1 and K4, and the stochastic level of one
-// coordinate.  Each .cu that includes this builds into its own library.
+// encodes (fused_encode.cu: K4, K5): the fixed-order block sum, the thread
+// map and per-block sum of squares of K1 and K4, and the stochastic level
+// of one coordinate.  Each .cu that includes this builds into its own library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,33 +35,53 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// The per-block body of K1 and of K4's first launch, grid (P, rows): block
-// (p, r) sums y[r, i]^2 over a grid stride of 16-byte loads; the row is
-// peeled to 16-byte alignment first (rows of odd length start mid-vector)
-// and its tail done scalar.  The block's sum is valid in thread 0.
+// The thread map of K1 and of K4 over row blockIdx.y of a (rows, n)
+// matrix, grid (P, rows): the row is peeled to 16-byte alignment first
+// (rows of odd length start mid-vector), then thread `tid` of the grid's
+// row takes the head element tid (tid < head), the 16-byte vectors tid,
+// tid + stride, ... of the body, and the tail element head + 4 nvec + tid
+// (when below n).  Each coordinate falls to exactly one thread.
+struct RowMap {
+  const float* row;
+  long long n, head, nvec, tid, stride;
+  __device__ __forceinline__ RowMap(const float* y, long long n_)
+      : row(y + (long long)blockIdx.y * n_), n(n_) {
+    tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    stride = (long long)gridDim.x * blockDim.x;
+    head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
+    if (head > n) head = n;
+    nvec = (n - head) >> 2;
+  }
+  __device__ __forceinline__ const float4* body() const {
+    return reinterpret_cast<const float4*>(row + head);
+  }
+  __device__ __forceinline__ long long tail() const {
+    return head + (nvec << 2) + tid;
+  }
+};
+
+// The sum of squares in K1's order, one term at a time: acc + v^2 for a
+// head or tail element, acc + (x^2 + y^2 + z^2 + w^2) for a vector.  K1's
+// loop and K4's registers add through these, so their partials agree bit
+// for bit.
+__device__ __forceinline__ float add_sq(float acc, float v) {
+  return acc + v * v;
+}
+__device__ __forceinline__ float add_sq4(float acc, float4 v) {
+  return acc + (v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w);
+}
+
+// The per-block body of K1 and of K4's first launch on the two-launch
+// route: block (p, r) sums y[r, i]^2 over its share of the RowMap.  The
+// block's sum is valid in thread 0.
 __device__ __forceinline__ float block_sumsq(const float* __restrict__ y,
                                              long long n) {
-  const float* row = y + (long long)blockIdx.y * n;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
-  if (head > n) head = n;
+  const RowMap m(y, n);
   float acc = 0.f;
-  if (tid < head) {
-    const float v = row[tid];
-    acc += v * v;
-  }
-  const float4* body = reinterpret_cast<const float4*>(row + head);
-  const long long nvec = (n - head) >> 2;
-  for (long long i = tid; i < nvec; i += stride) {
-    const float4 v = body[i];
-    acc += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-  }
-  const long long t = head + (nvec << 2) + tid;
-  if (t < n) {
-    const float v = row[t];
-    acc += v * v;
-  }
+  if (m.tid < m.head) acc = add_sq(acc, m.row[m.tid]);
+  for (long long i = m.tid; i < m.nvec; i += m.stride)
+    acc = add_sq4(acc, m.body()[i]);
+  if (m.tail() < n) acc = add_sq(acc, m.row[m.tail()]);
   return block_sum<kThreads>(acc);
 }
 

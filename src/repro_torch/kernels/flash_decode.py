@@ -40,7 +40,7 @@ import math
 import torch
 
 from . import build
-from .qsgd import _on_card
+from .qsgd import _aligned, _on_card
 
 __all__ = ["LAUNCHES", "reset_launches", "SPLITS", "MAX_G", "HEAD_DIMS",
            "stage_positions", "split_ranges", "flash_decode",
@@ -153,9 +153,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"G <= {MAX_G}, B and KV <= {_MAX_GRID_YZ}; got "
                          f"{tuple(q.shape)} against C={C}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} must be contiguous and "
-                             f"16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode: {name} must be contiguous")
+    # the tensor maps and q's loads want 16-byte boundaries: a view off one
+    # runs on an aligned copy (the serving path's caches are always aligned)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if valid.dtype != torch.bool:
         valid = valid > 0
     valid = valid.contiguous()

@@ -9,11 +9,17 @@ PyTorch versions.
                                   (its inner ``kernel``)
 
 K4 is norm + quantize (+ int4 pack) of a (rows, n) matrix, one message per
-row, in two launches: K1's partial sums of squares, then a quantize+pack
-kernel that finishes the norm itself, so levels never reach device memory
-and no host round trip separates the two.  It moves 12.5n bytes packed
-(y twice, u once, n/2 out) and 13n unpacked, so device-memory bandwidth
-bounds it at large n and launch latency at the model's D = 101,770.  K5 is
+row.  Where every block of K1's grid (``sumsq_blocks(n)``, rows) fits on
+the card at once and n <= 2^19 (:func:`k4_route`), it is one cooperative
+launch: each thread keeps its few vectors of y and u in registers, the
+blocks of a row meet at a barrier inside the launch to add the row's
+partial sums in K1's order, and each thread quantizes and packs what it
+holds; it moves 8.5n bytes packed (y and u once, n/2 out) and 9n
+unpacked.  Elsewhere it is two launches, K1's partial sums and then a
+quantize+pack that finishes the norm itself, and moves 12.5n / 13n (y
+twice).  Both routes give the same bytes and K1's norm bit for bit, and
+levels never reach device memory.  Device-memory bandwidth bounds K4 at
+large n and launch latency at the model's D = 101,770.  K5 is
 the rotated twin for a power-of-two d <= 2^15: one message is spread over
 a thread block cluster of :func:`k5_cluster` blocks (8 at 2^15), each
 holding a chunk of at most 4,096 coordinates in shared memory through the
@@ -26,7 +32,8 @@ Plain versions: :func:`fused_encode_plain` is ``sumsq_plain`` +
 ``quantize_plain`` + ``pack_int4``, :func:`fused_rotate_encode_plain` is
 ``rotate`` + the same.  Each wrapper runs its kernel for CUDA tensors and
 the plain version for CPU tensors — only because the tensors lie on the
-CPU; a CUDA tensor never falls back.  ``LAUNCHES`` counts kernel launches.
+CPU; a CUDA tensor never falls back.  ``LAUNCHES`` counts wrapper calls
+that launched their kernel, ``ROUTES`` K4's calls by route.
 """
 from __future__ import annotations
 
@@ -36,37 +43,51 @@ import numpy as np
 import torch
 
 from . import build
-from .qsgd import _check, _on_card, quantize_plain, sumsq_blocks, sumsq_plain
+from .qsgd import (_aligned, _check, _on_card, quantize_plain,
+                   sumsq_blocks, sumsq_plain)
 
-__all__ = ["LAUNCHES", "reset_launches", "FUSED_ROTATE_MAX_DIM",
-           "K5_CHUNK", "k5_cluster", "check_fused_s", "fused_encode",
+__all__ = ["LAUNCHES", "ROUTES", "reset_launches", "FUSED_ROTATE_MAX_DIM",
+           "K4_ONE_LAUNCH_MAX_N", "k4_route", "K5_CHUNK", "k5_cluster",
+           "check_fused_s", "fused_encode",
            "fused_rotate_encode",
            "fused_encode_plain", "fused_rotate_encode_plain"]
 
 #: kernel launches per wrapper (the plain versions never count)
 LAUNCHES = {"fused_encode": 0, "fused_rotate_encode": 0}
+#: K4's calls on the card by route (:func:`k4_route`)
+ROUTES = {"one_launch": 0, "two_launch": 0}
 
 #: largest power-of-two message K5 takes, as the JAX package's
 #: single-VMEM-block limit (routing above it is unchanged: rotate, then K4)
 FUSED_ROTATE_MAX_DIM = 1 << 15
+#: the longest row K4 takes in one launch (128 blocks of K1's grid).  The
+#: kernel holds rows of up to 2^22 (K1's grid gives each thread at most 4
+#: vectors, csrc/fused_encode.cu kSlots), but every block of a row reads
+#: the row's P partials, and from 256 blocks a row on the card measured it
+#: slower than two launches (PERF.md, PR 16)
+K4_ONE_LAUNCH_MAX_N = 1 << 19
 #: coordinates one block of K5 holds at most (16 KiB of f32)
 K5_CHUNK = 4096
 
 _MAX_ROWS = 65535          # K4's grid.y limit
+_MAX_SLOTS = 65535         # blocks of K4's one launch (csrc: kMaxSlots)
 _PTR, _LL, _F32, _INT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_int)
 #: argument types of the C entry points in csrc/fused_encode.cu, stream
 #: excluded
 _SIGS = {
-    "fused_encode": [_PTR, _PTR, _LL, _LL, _INT, _F32, _INT] + [_PTR] * 3,
+    "fused_encode": [_PTR, _PTR, _LL, _LL, _INT, _F32, _INT, _INT]
+    + [_PTR] * 4,
+    "fused_encode_capacity": [_PTR],
     "fused_rotate_encode": [_PTR, _PTR, _LL, _INT, _INT, ctypes.c_uint,
                             _F32, _F32, _INT] + [_PTR] * 3,
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def check_fused_s(s: int, pack: bool):
@@ -76,6 +97,61 @@ def check_fused_s(s: int, pack: bool):
                          f"(s <= 127), got {s}")
     if pack and s > 7:
         raise ValueError(f"int4 nibble packing carries s <= 7, got {s}")
+
+
+def k4_route(rows: int, n: int, capacity: int) -> str:
+    """K4's route for a (rows, n) matrix on a card that holds ``capacity``
+    blocks of the one-launch kernel at once: ``"one_launch"`` where n <=
+    ``K4_ONE_LAUNCH_MAX_N`` and all rows x ``sumsq_blocks(n)`` blocks are
+    resident together (its blocks wait for each other), else
+    ``"two_launch"``.  A function of the shape and the card alone."""
+    if n <= K4_ONE_LAUNCH_MAX_N and \
+            rows * sumsq_blocks(n) <= min(capacity, _MAX_SLOTS):
+        return "one_launch"
+    return "two_launch"
+
+
+_CAPACITY: dict = {}
+_SCRATCH: dict = {}
+
+
+def _card(device) -> torch.device:
+    """``device`` with its index filled in (a bare "cuda" is the current
+    card), so that each card has one entry in the caches below."""
+    device = torch.device(device)
+    return device if device.index is not None else torch.device(
+        device.type, torch.cuda.current_device())
+
+
+def _k4_scratch(device) -> torch.Tensor:
+    """The one-launch route's exchange on ``device``: 1 + 65,535 int64
+    zeros, allocated once and kept (word 0: the last launch's generation
+    and a count of blocks, which each launch sets back to 0; then a slot a
+    block, tagged with the generation that wrote it, so a CUDA-graph
+    replay needs nothing reset).  K4 runs on PyTorch's current stream: two
+    one-launch K4s in flight at once on different streams of one device
+    would share it, which the port never does."""
+    device = _card(device)
+    t = _SCRATCH.get(device)
+    if t is None:
+        t = _SCRATCH[device] = torch.zeros(1 + _MAX_SLOTS, dtype=torch.int64,
+                                           device=device)
+    return t
+
+
+def _capacity(device) -> int:
+    """The one-launch kernel's resident blocks on ``device``
+    (``fused_encode_capacity``), asked once per device."""
+    device = _card(device)
+    cap = _CAPACITY.get(device)
+    if cap is None:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            build.launch("fused_encode", "fused_encode_capacity",
+                         _SIGS["fused_encode_capacity"],
+                         ctypes.addressof(blocks))
+        cap = _CAPACITY[device] = blocks.value
+    return cap
 
 
 def k5_cluster(d: int) -> int:
@@ -127,7 +203,7 @@ def fused_encode(y: torch.Tensor, u: torch.Tensor, s: int,
                  pack: bool = False):
     """K4: y, u (rows, n) f32 -> (payload, norm): payload (rows, ceil(n/2))
     packed int4 bytes when ``pack``, else (rows, n) int8 levels; norm
-    (rows,) f32."""
+    (rows,) f32.  On the card the route is :func:`k4_route`'s."""
     _check_pair(y, u, "fused_encode")
     check_fused_s(int(s), pack)
     if not _on_card(y, u):
@@ -136,14 +212,18 @@ def fused_encode(y: torch.Tensor, u: torch.Tensor, s: int,
     if not 1 <= rows <= _MAX_ROWS or n < 1:
         raise ValueError(f"fused_encode: bad shape {tuple(y.shape)}")
     P = sumsq_blocks(n)
+    route = k4_route(rows, n, _capacity(y.device))
     partials = torch.empty(rows * P, dtype=torch.float32, device=y.device)
     norm = torch.empty(rows, dtype=torch.float32, device=y.device)
     out = torch.empty((rows, (n + 1) // 2 if pack else n), dtype=torch.int8,
                       device=y.device)
     build.launch("fused_encode", "fused_encode", _SIGS["fused_encode"],
                  y.data_ptr(), u.data_ptr(), rows, n, P, float(s), int(pack),
-                 partials.data_ptr(), norm.data_ptr(), out.data_ptr())
+                 int(route == "one_launch"), partials.data_ptr(),
+                 _k4_scratch(y.device).data_ptr(), norm.data_ptr(),
+                 out.data_ptr())
     LAUNCHES["fused_encode"] += 1
+    ROUTES[route] += 1
     return out, norm
 
 
@@ -160,10 +240,10 @@ def fused_rotate_encode(ypad: torch.Tensor, u: torch.Tensor, s: int,
                         seed: int, pack: bool = False):
     """K5: ypad, u (rows, d) f32 with d a power of two in [2, 2^15] ->
     (payload, norm) of the rotated rows, as :func:`fused_encode`.  On the
-    card ypad and u start on a 16-byte boundary (the kernel's vector
-    loads).  (The kernel's last pointer, a copy of the rotated rows, stays
-    null here: only the smoke script's bitwise check of the FWHT passes
-    one.)"""
+    card an input off a 16-byte boundary (the kernel's vector loads) is
+    copied to one first.  (The kernel's last pointer, a copy of the
+    rotated rows, stays null here: only the smoke script's bitwise check
+    of the FWHT passes one.)"""
     _check_pair(ypad, u, "fused_rotate_encode")
     check_fused_s(int(s), pack)
     rows, d = ypad.shape
@@ -172,9 +252,7 @@ def fused_rotate_encode(ypad: torch.Tensor, u: torch.Tensor, s: int,
         return fused_rotate_encode_plain(ypad, u, s, seed, pack)
     if not 1 <= rows * k5_cluster(d) < 2**31:
         raise ValueError(f"fused_rotate_encode: bad rows {rows}")
-    if ypad.data_ptr() % 16 or u.data_ptr() % 16:
-        raise ValueError("fused_rotate_encode: ypad and u must start on a "
-                         "16-byte boundary")
+    ypad, u = _aligned(ypad), _aligned(u)
     norm = torch.empty(rows, dtype=torch.float32, device=ypad.device)
     out = torch.empty((rows, d // 2 if pack else d), dtype=torch.int8,
                       device=ypad.device)

@@ -105,6 +105,15 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int):
                          f"contiguous={t.is_contiguous()}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it starts on a 16-byte boundary, else an aligned
+    contiguous copy: for kernels whose 16-byte loads or tensor maps need
+    one (a contiguous view such as ``torch.rand(d + 1)[1:]`` starts 4 bytes
+    off).  The kernel still runs, on the copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _launch(name: str, *args):
     build.launch("qsgd", name, _SIGS[name], *args)
 

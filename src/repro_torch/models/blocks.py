@@ -55,7 +55,11 @@ def layernorm(*args, **kwargs):
 # RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    """RoPE's inverse frequencies theta^(-2i/d_head), i < d_head/2, f32, on
+    ``device`` (the card unless the caller asks for the CPU; with no card
+    it raises)."""
     half = d_head // 2
+    device = resolve_device("cuda" if device is None else device)
     return 1.0 / theta ** (torch.arange(0, half, dtype=torch.float32,
                                         device=device) / half)
 

@@ -285,3 +285,17 @@ def test_make_cache_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             PB.make_cache(cfg, 2, 8)
+
+
+def test_rope_freqs_defaults_to_the_card():
+    """``blocks.rope_freqs`` runs on the card unless asked for the CPU: with
+    no card a call without a device raises, with one the frequencies lie
+    there.  On the CPU they equal the ones ``apply_rope`` uses."""
+    cpu = PB.rope_freqs(128, 1e6, device="cpu")
+    assert cpu.device.type == "cpu" and cpu.shape == (64,)
+    assert torch.equal(cpu, PB.rope_freqs(128, 1e6, torch.device("cpu")))
+    if torch.cuda.is_available():
+        assert PB.rope_freqs(128, 1e6).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PB.rope_freqs(128, 1e6)

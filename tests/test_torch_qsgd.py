@@ -202,6 +202,19 @@ def test_wrappers_refuse_other_devices_and_types():
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_aligned_copies_only_views_off_a_16_byte_boundary(offset):
+    """K5's and K6's wrappers hand their kernels ``_aligned`` inputs: a
+    contiguous view ``offset`` floats into its storage is copied to a
+    16-byte boundary with the same values; an aligned tensor passes as
+    itself."""
+    base = torch.arange(40, dtype=torch.float32)
+    view = base[offset:offset + 32]
+    got = K._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert (got.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
+
+
 def test_ctypes_signatures_match_the_cuda_source():
     """Each C entry point's parameter count in csrc/qsgd.cu equals the
     wrapper's ctypes argtypes plus the stream."""

@@ -222,3 +222,25 @@ def test_no_quiet_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         scn.run(Plan.manual(K0=1, Kn=[1] * N, B=1,
                             step_rule=ConstantRule(0.1)))
+
+
+def test_same_device(monkeypatch):
+    """The run's device check: a bare "cuda" is the current card, so a task
+    on cuda:0 runs under device="cuda" and the converse; another index or
+    another type is another device.  No card is needed: the current
+    device is stubbed, and asked only when one side has no index."""
+    asked = []
+
+    def current():
+        asked.append(1)
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "current_device", current)
+    same = repro_torch.same_device
+    assert same("cpu", "cpu") and same(torch.device("cpu"), "cpu")
+    assert same("cuda:1", torch.device("cuda", 1)) and not asked
+    assert not same("cuda:0", "cuda:1") and not same("cpu", "cuda:0")
+    assert not asked
+    assert same("cuda", "cuda:0") and same("cuda:0", "cuda")
+    assert not same("cuda", "cuda:1") and same("cuda", "cuda")
+    assert len(asked) == 3
