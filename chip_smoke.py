@@ -44,21 +44,37 @@ Phases, each of which fails the script on error:
      also held against the same round on the CPU (plain versions) with the
      same draws, and 20 rounds are profiled (device time by kernel, the
      device's busy share);
-  4. the GQFedWAvg closed loop at the same width:
+  4. sampling and faults on the same task and constants:
+     ``Scenario(..., T_max=2e5, sampling=uniform(8), faults=edge_faults(
+     stragglers 0.3 x 4, crashes 0.05 for 3 rounds, corruption 0.01,
+     slack 1.5, adaptive deadline)).optimize()`` -> ``run(plan,
+     max_rounds=400, seed=0)`` with the counters read around it (K1/K2 800,
+     K3 400: all N workers still train and encode); comm bits the sum of
+     ``cohort_round_bits`` over the cohorts; the cohorts and the
+     ``FaultTrace`` equal to a host replay of the seed (fresh
+     ``default_rng(0)`` and ``FaultDriver`` on ``fault_rng(0)``), some round
+     degraded, the adaptive deadline moving; a model that learned; a
+     400-row ``report.drift()``.  One sampled and faulted round (the
+     replay's weights of the round that drops the most workers) on the card
+     against the CPU; 50 rounds with obs on against obs off (equal traces,
+     bits and costs; the model bitwise equal where the card repeats runs
+     bitwise, else within two server levels; the ledger written only with
+     obs on); a 20-round ``run`` profiled;
+  5. the GQFedWAvg closed loop at the same width:
      ``Scenario(..., family="gqfedwavg").optimize()`` (rotated codec,
-     d' = 2^17) -> ``run(plan, max_rounds=200)``, counters read as in 3;
+     d' = 2^17) -> ``run(plan, max_rounds=100)``, counters read as in 3;
      one round with unequal weights and beta = 0.9 on the card against the
      CPU; 20 rounds profiled;
-  5. the payload entry point: ``make_codec(s, wire, kind, backend="cuda")
+  6. the payload entry point: ``make_codec(s, wire, kind, backend="cuda")
      .encode_payload`` -> ``decode_payload`` for kind {qsgd, rotated} x
      (wire, s) {(int4, 7), (int8, 127)} over the 10 worker deltas of a
-     phase-4 round and 1-D messages of 1,000 .. 2^22 coordinates, with the
+     phase-5 round and 1-D messages of 1,000 .. 2^22 coordinates, with the
      counters read around the payload calls alone; each payload is held
      against the plain versions on the same y and u (the norm within
      rtol 1e-6, the bytes identical given the kernel's norm) and against
      ``decode(*encode(y, u))``; K4's calls by route are logged, at least
      one of them in one launch;
-  6. flash decode (K6) against its plain version on the card, within
+  7. flash decode (K6) against its plain version on the card, within
      rtol/atol 1e-5 (both accumulate in f32; a bf16 output within one bf16
      ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
      heads, G = 2, dh = 128) over bf16 and f32 caches, a gemma3-width
@@ -72,7 +88,7 @@ Phases, each of which fails the script on error:
      gemma3-width and the G = 16 shapes beside its byte bound, its plain
      version and ``scaled_dot_product_attention``, with the blocks the
      card keeps resident;
-  7. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
+  8. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
      max_len=4096)`` at full width (28 layers, d_model 2048, vocab
      151,936; f32 weights from ``lm.init_params`` with a seeded generator,
      bf16 cache) serves 16 requests (prompts of 256-2048 tokens, 32 new
@@ -127,10 +143,20 @@ K5_DS = (2, 64, 1024, 1 << 12, 1 << 13, 1 << 14, 1 << 15)
 K5_SEEDS = (0, 5, 2**32 - 1)
 FUSED_S = ((7, True), (127, False))          # (s, pack)
 #: GQFedWAvg with unequal aggregation weights and heavy momentum, for the
-#: card-vs-CPU round of phase 4
+#: card-vs-CPU round of phase 5
 SMOKE_WEIGHTS = (4, 4, 2, 2, 1, 1, 1, 1, 1, 1)
 SMOKE_MOMENTUM = 0.9
-#: the serving run of phase 7: qwen3-1.7b at full width, 8 slots of 4096
+#: phase 4's sampled and faulted loop: a cohort of 8 of the 10 workers a
+#: round and an edge fleet behind an adaptive deadline (T_max = 2e5 s)
+SAMPLED_S = 8
+SAMPLED_FAULTS = dict(straggler_prob=0.3, straggler_factor=4.0,
+                      crash_prob=0.05, crash_rounds=3, corrupt_prob=0.01,
+                      deadline_slack=1.5, deadline="adaptive")
+SAMPLED_ROUNDS = 400
+#: phase 5's GQFedWAvg rounds, short enough to keep the whole script near
+#: its time budget
+WAVG_ROUNDS = 100
+#: the serving run of phase 8: qwen3-1.7b at full width, 8 slots of 4096
 #: positions, 16 requests of 256-2048 prompt tokens and 32 new tokens
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
@@ -827,9 +853,204 @@ def phase_main_path() -> dict:
             "consts": consts}
 
 
-def phase_gqfedwavg(task, consts, max_rounds: int = 200,
+def phase_sampled_faults(task, consts, rounds: int = SAMPLED_ROUNDS,
+                         obs_rounds: int = 50, profile: bool = True) -> dict:
+    """Phase 4: client sampling and fault injection through the closed
+    loop at full width on ``task``'s device: a cohort of 8 of 10 a round
+    and an edge fleet (stragglers, 3-round crashes, corruption) behind an
+    adaptive deadline; the cohort and fault traces against a host replay
+    of the seed, one sampled and faulted round against the CPU, obs on
+    against off, and 20 profiled rounds."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (EdgeSystem, MNISTTask, Scenario,
+                                 edge_faults, uniform)
+    from repro_torch.core.genqsgd import GenQSGD, flatten_like
+    from repro_torch.faults import FaultDriver, FaultSpec, fault_rng
+    from repro_torch.sampling import draw_cohort
+
+    dev = task.device
+    scenario = Scenario(EdgeSystem.paper_sec_vii(dim=task.dim), consts,
+                        T_max=2e5, C_max=0.25, sampling=uniform(SAMPLED_S),
+                        faults=edge_faults(**SAMPLED_FAULTS))
+    t0 = time.perf_counter()
+    plan = scenario.optimize()
+    log(f"[sampled] optimize {time.perf_counter() - t0:.2f} s: K0={plan.K0} "
+        f"Kn={plan.Kn[0]} B={plan.B} S={plan.cohort_S} "
+        f"tau={plan.faults.deadline:.4g} s: {plan.describe()}")
+    if not (plan.feasible and plan.cohort_S == SAMPLED_S
+            and isinstance(plan.faults, FaultSpec)):
+        raise AssertionError(f"want a feasible Plan with cohort_S="
+                             f"{SAMPLED_S} and a FaultSpec: {plan}")
+
+    scenario.run(plan, task=task, max_rounds=2, device=dev)   # warm-up
+    reset_launches()
+    report = scenario.run(plan, task=task, max_rounds=rounds, seed=0,
+                          device=dev)
+    launches = read_launches()
+    log(report.summary())
+    ms_round = report.wall_time_s / report.rounds * 1e3
+    ft = report.fault_trace
+    log(f"[sampled] {report.rounds} rounds, {ms_round:.3f} ms/round, "
+        f"test_acc {report.final_metrics['test_acc']:.4f}, launches "
+        f"{launches}; {ft.rounds_degraded} rounds degraded, "
+        f"{ft.workers_dropped} worker-rounds dropped, tau "
+        f"{min(r.deadline for r in ft.records):.4g}.."
+        f"{max(r.deadline for r in ft.records):.4g} s")
+    want = {"qsgd_sumsq": 2 * rounds, "qsgd_quantize": 2 * rounds,
+            "qsgd_dequant_apply": rounds, "fused_encode": 0,
+            "fused_rotate_encode": 0, "flash_decode": 0}
+    if len(set(plan.sn)) != 1 or launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+
+    # the host replay of the seed: a fresh cohort stream and a fresh
+    # FaultDriver on its salted stream, no training
+    crng, frng = np.random.default_rng(0), fault_rng(0)
+    drv = FaultDriver(plan.faults, plan.N, plan.agg_weights)
+    cohorts, us = [], []
+    for k in range(rounds):
+        idx, pi = draw_cohort(crng, plan.N, plan.cohort_S, plan.sampling_p)
+        cohorts.append(idx)
+        us.append(drv.step(frng, k, idx, pi))
+    if ft != drv.trace():
+        raise AssertionError("the run's FaultTrace differs from the replay")
+    if [r.cohort for r in ft.records] != \
+            [tuple(sorted(int(i) for i in c)) for c in cohorts]:
+        raise AssertionError("the run's cohorts differ from the replay")
+    bits = tuple(plan.cohort_round_bits(c, dim=task.dim) for c in cohorts)
+    if report.round_bits_trace != bits or report.comm_bits != sum(bits):
+        raise AssertionError(f"comm bits {report.comm_bits} != the sum of "
+                             f"cohort_round_bits {sum(bits)}")
+    taus = {r.deadline for r in ft.records}
+    if ft.rounds_degraded < 1 or len(taus) < 2:
+        raise AssertionError(f"{ft.rounds_degraded} rounds degraded, "
+                             f"{len(taus)} distinct deadlines")
+    x0 = flatten_like(task.init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    loss0 = task.metrics(x0)["eval_loss"]
+    m = report.final_metrics
+    if not (np.isfinite(m["eval_loss"]) and np.isfinite(m["test_acc"])
+            and m["eval_loss"] < loss0):
+        raise AssertionError(f"the run did not learn: {m}, initial eval "
+                             f"loss {loss0}")
+    ledger = report.drift()
+    cum = ledger.cumulative()
+    if len(ledger) != rounds or not all(np.isfinite(v)
+                                        for v in cum.values()):
+        raise AssertionError(f"drift ledger of {len(ledger)} rows, "
+                             f"cumulative {cum}")
+    log(f"[sampled] eval loss {loss0:.4f} -> {m['eval_loss']:.4f}; "
+        f"{ledger.summary()}")
+
+    # one sampled and faulted round, card against CPU, with the replay's
+    # weights of the round that drops the most workers
+    u = max(us, key=lambda v: int(np.sum(v == 0)))
+    if int(np.sum(u == 0)) < 2:
+        raise AssertionError(f"no replayed round zeroes two workers: {u}")
+    cfg = plan.to_genqsgd_config(max_K0=1, seed=0)
+    cpu_task = task if dev.type == "cpu" else MNISTTask(device="cpu")
+    algs = {"dev": GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                           cfg),
+            "cpu": GenQSGD(cpu_task.loss, cpu_task.make_data(plan.N),
+                           cpu_task.shapes, cfg)}
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    x0 = flatten_like(cpu_task.init_params(gen))
+    D = x0.shape[0]
+    idx = torch.randint(0, algs["cpu"].n_local, (plan.N, plan.K_max, plan.B),
+                        generator=gen)
+    uw, us_ = torch.rand(plan.N, D, generator=gen), torch.rand(D,
+                                                               generator=gen)
+    u_t = torch.as_tensor(u, dtype=torch.float32)
+    gamma = plan.gamma
+    x_cpu, m_cpu = algs["cpu"].round(x0, idx, uw, us_, gamma, u_t)
+    x_dev, _ = algs["dev"].round(x0.to(dev), idx.to(dev), uw.to(dev),
+                                 us_.to(dev), gamma, u_t.to(dev))
+    diff = (x_dev.cpu() - x_cpu).abs()
+    level = gamma * float(m_cpu["delta_norm"]) / plan.s0
+    if float(diff.max()) > 2 * level + 1e-6 or \
+            int((diff > 1e-6).sum()) > D // 1000:
+        raise AssertionError(f"device round differs from the CPU round: max "
+                             f"{float(diff.max()):.3g} (level {level:.3g}), "
+                             f"{int((diff > 1e-6).sum())} coordinates")
+    log(f"[sampled] one round (u zeroes {int(np.sum(u == 0))} workers) "
+        f"device vs CPU: max abs diff {float(diff.max()):.3g} (server level "
+        f"{level:.3g})")
+
+    obs_check(scenario, plan, task, obs_rounds, level)
+    if profile:
+        alg = GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                      plan.to_genqsgd_config(max_K0=20, seed=0))
+        profile_run(alg, x0.to(dev), torch.Generator(device=dev))
+    return {"launches": launches, "ms_round": ms_round}
+
+
+def obs_check(scenario, plan, task, rounds: int, level: float) -> None:
+    """``rounds`` sampled and faulted rounds with obs off and on: equal
+    reports apart from wall time and the model, equal traces; the model
+    bitwise equal where the card repeats a run bitwise (else within two
+    server levels); the drift ledger written only with obs on."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.genqsgd import GenQSGD, flatten_like
+
+    dev = task.device
+    os.environ["REPRO_OBS_DIR"] = os.path.join(ROOT, "build", "obs")
+    ledger_path = obs.artifact_path(
+        f"ledger_{plan.family}_reference_seed0.jsonl")
+    if os.path.exists(ledger_path):
+        os.remove(ledger_path)
+    alg = GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                  plan.to_genqsgd_config(max_K0=rounds, seed=0))
+    x0 = flatten_like(task.init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+
+    def run():
+        x, _ = alg.run(x0, torch.Generator(device=dev).manual_seed(1))
+        return x, list(alg.cohort_trace), alg.fault_trace
+
+    off = scenario.run(plan, task=task, max_rounds=rounds, seed=0,
+                       device=dev)
+    x_off, c_off, f_off = run()
+    if os.path.exists(ledger_path):
+        raise AssertionError("obs off wrote a ledger")
+    try:
+        obs.enable(reset=True)
+        on = scenario.run(plan, task=task, max_rounds=rounds, seed=0,
+                          device=dev)
+        x_on, c_on, f_on = run()
+        n = obs.REGISTRY.counter("run.rounds", backend="reference").value
+    finally:
+        obs.disable()
+        obs.REGISTRY.reset()
+        obs.TRACER.clear()
+    same = (on.comm_bits == off.comm_bits and on.measured_E == off.measured_E
+            and on.measured_T == off.measured_T
+            and on.round_bits_trace == off.round_bits_trace
+            and on.fault_trace == off.fault_trace == f_on == f_off
+            and on.drift() == off.drift()
+            and all((a == b).all() for a, b in zip(c_on, c_off)))
+    if not same or n != 2 * rounds:
+        raise AssertionError(f"obs on changed the run (or counted {n} "
+                             f"rounds, want {2 * rounds})")
+    if obs.RunLedger.load_jsonl(ledger_path) != on.drift():
+        raise AssertionError("the written ledger differs from drift()")
+    if torch.equal(x_on, x_off) and on.final_metrics == off.final_metrics:
+        log(f"[sampled] obs on vs off over {rounds} rounds: reports, traces "
+            f"and the model bitwise equal; ledger {ledger_path}")
+        return
+    x_again, _, _ = run()
+    diff = float((x_on - x_off).abs().max())
+    if torch.equal(x_again, x_off) or diff > 2 * level + 1e-6:
+        raise AssertionError(f"obs on moved the model by {diff:.3g} on a "
+                             f"card that repeats runs bitwise")
+    log(f"[sampled] obs on vs off over {rounds} rounds: reports and traces "
+        f"equal; the card does not repeat a run bitwise, model within "
+        f"{diff:.3g} (server level {level:.3g})")
+
+
+def phase_gqfedwavg(task, consts, max_rounds: int = WAVG_ROUNDS,
                     profile: bool = True) -> dict:
-    """Phase 4: the GQFedWAvg closed loop at full width on ``task``'s
+    """Phase 5: the GQFedWAvg closed loop at full width on ``task``'s
     device, then one round on it against the same round on the CPU."""
     import numpy as np
     import torch
@@ -924,7 +1145,7 @@ def phase_gqfedwavg(task, consts, max_rounds: int = 200,
 
 
 def phase_payload(deltas) -> dict:
-    """Phase 5: ``encode_payload`` -> ``decode_payload`` on the device of
+    """Phase 6: ``encode_payload`` -> ``decode_payload`` on the device of
     ``deltas``, against ``decode(*encode(y, u))`` of the same codec."""
     import torch
     from repro_torch.compress import FUSED_ROTATE_MAX_DIM, make_codec
@@ -1034,7 +1255,7 @@ def phase_payload(deltas) -> dict:
 
 
 def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
-    """Phase 6's inputs on ``dev`` from ``gen``: q (B, KV, G, dh), k/v
+    """Phase 7's inputs on ``dev`` from ``gen``: q (B, KV, G, dh), k/v
     (B, C, KV, dh), a bool (B, C) mask of the named kind."""
     import torch
     from repro_torch.kernels import flash_decode as FD
@@ -1108,7 +1329,7 @@ def k6_blocks_per_sm(q, k) -> int:
 
 
 def phase_flash_decode(dev) -> dict:
-    """Phase 6: K6 against its plain version on ``dev`` at every shape of
+    """Phase 7: K6 against its plain version on ``dev`` at every shape of
     K6_SHAPES, twice (the two outputs bitwise equal), then (on the card) its
     times at K6_TIMED beside its plain version's and SDPA's."""
     import torch
@@ -1235,7 +1456,7 @@ def tree_leaves(tree):
 
 def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
                 prompt: tuple, new_tokens: int, check_cfg) -> dict:
-    """Phase 7: ``ServeEngine(...).run(requests)`` for ``cfg`` on ``dev``,
+    """Phase 8: ``ServeEngine(...).run(requests)`` for ``cfg`` on ``dev``,
     counters read around the run; then ``check_cfg`` on ``dev`` against
     the CPU (a prompt of 64 tokens and 4 decode steps)."""
     import numpy as np
@@ -1406,6 +1627,24 @@ def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:
     log_device_time(prof, wall, rounds, "round", top=12)
 
 
+def profile_run(alg, x0, gen) -> None:
+    """Where a sampled round's time goes: torch.profiler over a whole
+    ``alg.run`` (the host's cohort and fault draws included), device time
+    by kernel and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    alg.run(x0, gen.manual_seed(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        alg.run(x0, gen.manual_seed(2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_device_time(prof, wall, alg.cfg.K0, "round", top=12)
+
+
 def log_device_time(prof, wall: float, n: int, unit: str, top: int = 10):
     """Log the device's busy share of ``wall`` over ``n`` units (rounds,
     steps) and the busiest kernels; -> the device-side events."""
@@ -1441,25 +1680,36 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t_all = time.perf_counter()
-    phase_build()
-    kern = phase_kernels()
-    fused = phase_fused_kernels("cuda")
-    path = phase_main_path()
-    wavg = phase_gqfedwavg(path["task"], path["consts"])
-    pay = phase_payload(wavg["deltas"])
-    k6 = phase_flash_decode("cuda")
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels)
+    fused = timed("fused", phase_fused_kernels, "cuda")
+    path = timed("main", phase_main_path)
+    samp = timed("sampled", phase_sampled_faults, path["task"],
+                 path["consts"])
+    wavg = timed("gqfedwavg", phase_gqfedwavg, path["task"], path["consts"])
+    pay = timed("payload", phase_payload, wavg["deltas"])
+    k6 = timed("flash_decode", phase_flash_decode, "cuda")
     from repro_torch.models.registry import get_config
     cfg = get_config(SERVE_ARCH)
-    serve = phase_serve("cuda", cfg, SERVE_SLOTS, SERVE_MAX_LEN,
-                        SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
-                        dataclasses.replace(cfg, n_layers=2))
+    serve = timed("serve", phase_serve, "cuda", cfg, SERVE_SLOTS,
+                  SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+                  dataclasses.replace(cfg, n_layers=2))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     # launches: each kernel's count on the path that carries it (K1-K3 the
-    # quickstart run, K4/K5 the payload path, K6 the serving run), all four
+    # quickstart run, K4/K5 the payload path, K6 the serving run), all five
     # paths beside it
-    by_path = {"genqsgd": path["launches"], "gqfedwavg": wavg["launches"],
+    by_path = {"genqsgd": path["launches"], "sampled": samp["launches"],
+               "gqfedwavg": wavg["launches"],
                "payload": pay["launches"], "serve": serve["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
             "flash_decode": "serve"}
@@ -1475,7 +1725,8 @@ def main() -> int:
             "max_abs_err": worst[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
-    log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    log(f"[done] {time.perf_counter() - t_all:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

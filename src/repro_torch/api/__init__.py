@@ -9,18 +9,54 @@
     plan = scenario.optimize()            # Algorithms 2-5 (NumPy, host)
     report = scenario.run(plan, task=task)  # Algorithm 1 (PyTorch + CUDA)
     print(plan.describe()); print(report.summary())
+
+Participation models (``full`` | ``uniform`` | ``importance``) and fault
+models (``none`` | ``edge``) plug in as in the JAX package:
+``Scenario(sampling=uniform(8), faults=edge_faults(...))`` plans for the
+cohort and the fleet's availability, and ``run`` draws seeded cohorts and
+faults on the host and aggregates the survivors with unbiased
+Horvitz-Thompson weights on the card; ``report.drift()`` is the per-round
+drift ledger.  Step rules and the legacy family mapping live in
+:mod:`repro_torch.api.registries`.
+
+Sweeps (item 7), PlanServer (item 8) and the SPMD task and trainer
+(item 9) are not ported yet: asking this module for them raises
+:class:`NotImplementedError` naming the item in ROADMAP.md, Queue 1.
 """
+from .. import not_ported
 from ..core.convergence import MLProblemConstants
 from ..core.cost import EdgeSystem
 from ..core.step_rules import (ConstantRule, DiminishingRule, ExponentialRule,
-                               StepRule)
+                               StepRule, make_rule)
+from ..families import AlgorithmFamily, GQFedWAvgFamily, get_family
+from ..faults import FaultModel, FaultTrace, edge_faults
 from ..opt.problems import Objective
+from ..sampling import SamplingModel, importance, uniform
 from .plan import Plan, RunReport
+from .registries import (FAMILIES, STEP_RULES, family_names, make_step_rule,
+                         make_varmap, register_family, register_step_rule)
 from .scenario import Scenario
-from .tasks import MNISTTask
+from .tasks import MNISTTask, QuadraticTask
 
 __all__ = [
-    "Scenario", "Plan", "RunReport", "EdgeSystem", "MLProblemConstants",
-    "MNISTTask", "Objective", "StepRule", "ConstantRule", "ExponentialRule",
-    "DiminishingRule",
+    "Scenario", "Plan", "RunReport", "Objective",
+    "EdgeSystem", "MLProblemConstants",
+    "ConstantRule", "ExponentialRule", "DiminishingRule", "StepRule",
+    "make_rule", "make_step_rule", "make_varmap",
+    "STEP_RULES", "FAMILIES", "register_step_rule", "register_family",
+    "family_names", "AlgorithmFamily", "GQFedWAvgFamily", "get_family",
+    "SamplingModel", "uniform", "importance",
+    "FaultModel", "FaultTrace", "edge_faults",
+    "MNISTTask", "QuadraticTask",
 ]
+
+#: the JAX package's api names this package does not carry yet -> item
+_NOT_PORTED = {"SweepReport": 7, "sweep_scenarios": 7, "PlanServer": 8,
+               "SpmdTask": 9, "GenQSGDTrainer": 9, "round_comm_bits": 9}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise not_ported(f"repro_torch.api.{name}", _NOT_PORTED[name])
+    raise AttributeError(f"module 'repro_torch.api' has no attribute "
+                         f"{name!r}")

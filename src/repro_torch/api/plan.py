@@ -7,13 +7,15 @@ against.  The runtime configuration
 (:class:`~repro_torch.core.genqsgd.GenQSGDConfig`) derives from it, so the
 parameters can never disagree between the optimizer and the training run.
 The fields are the JAX package's, so the two packages' Plans compare field
-for field; the SPMD config (``to_fed_config``) and the drift ledger
-(``RunReport.drift``) are not ported yet (ROADMAP.md, Queue 1, item 9).
+for field; the SPMD config (``to_fed_config``) is not ported yet
+(ROADMAP.md, Queue 1, item 9).
 
 A :class:`RunReport` closes the loop: it compares what a training run
 actually moved/cost (communication bits through the
 ``codec.wire_bits`` accounting, cost-model energy/time at
-the executed round count, wall-clock) against the Plan's predictions.
+the executed round count, wall-clock) against the Plan's predictions, and
+``RunReport.drift()`` refines that into a per-round drift ledger
+(:class:`~repro_torch.obs.ledger.RunLedger`).
 """
 from __future__ import annotations
 
@@ -291,6 +293,15 @@ class RunReport:
         realized cohort bits sum to K0 times the expected per-round bits —
         exact for uniform cohorts over homogeneous quantizers)."""
         return self.comm_bits == self.predicted_comm_bits
+
+    def drift(self):
+        """The per-round predicted-vs-measured timeline for energy, time
+        and comm-bits: a :class:`~repro_torch.obs.ledger.RunLedger` with
+        one row per executed round and running cumulative drift ratios.
+        A pure function of this frozen report — identical whether
+        ``repro_torch.obs`` is enabled or not."""
+        from ..obs.ledger import RunLedger
+        return RunLedger.from_report(self)
 
     def summary(self) -> str:
         p = self.plan

@@ -9,10 +9,13 @@ loop as two calls:
     report = scenario.run(plan, task)     # train -> RunReport vs predictions
 
 The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
-``pr``, ``gqfedwavg`` and registered variants) with full participation and
-no faults, the scalar NumPy solver and the reference runtime; the rest of
-the JAX package's Scenario raises :class:`NotImplementedError` naming its
-item in ROADMAP.md.
+``pr``, ``gqfedwavg`` and registered variants), every participation model
+(``full``, ``uniform``, ``importance``) and fault model (``none``,
+``edge``), the scalar NumPy solver and the reference runtime, and writes
+the drift ledger of each run when :mod:`repro_torch.obs` is on; the rest
+of the JAX package's Scenario (per-bucket norms, sweeps, the batched and
+fused solvers, PlanServer, the SPMD runtime) raises
+:class:`NotImplementedError` naming its item in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -60,10 +63,6 @@ class Scenario:
 
     def __post_init__(self):
         resolve(self.family)              # unknown names fail here, loudly
-        if getattr(self.sampling, "key", self.sampling) != "full":
-            raise not_ported(f"sampling model {self.sampling!r}", 6)
-        if getattr(self.faults, "key", self.faults) != "none":
-            raise not_ported(f"fault model {self.faults!r}", 6)
         if self.system.q_dim is not None:
             raise not_ported("per-bucket-norm quantization (q_dim)", 2)
         self.sampling_obj.validate(self.system.N)
@@ -179,6 +178,7 @@ class Scenario:
         else:
             cohort_S = samp.pinned_S(sys.N)   # None for full / neutral
         sampling_p = samp.plan_p(sys.N) if cohort_S is not None else None
+        fault_spec = self._fault_spec(tuple(int(k) for k in r.Kn), int(r.B))
         return Plan(K0=int(r.K0), Kn=tuple(int(k) for k in r.Kn), B=int(r.B),
                     step_rule=step, s0=sys.s0, sn=tuple(sys.sn), dim=sys.dim,
                     q_dim=sys.q_dim, wire=sys.wire, objective=m,
@@ -187,10 +187,31 @@ class Scenario:
                     momentum=fam.momentum, normalize=fam.normalize,
                     sampling=samp.key if cohort_S is not None else "full",
                     cohort_S=cohort_S, sampling_p=sampling_p,
-                    faults=None,          # fault models are gated to "none"
+                    faults=fault_spec,
                     predicted_E=r.E, predicted_T=r.T,
                     predicted_C=r.C, feasible=bool(r.feasible),
                     converged=bool(r.converged))
+
+    def _fault_spec(self, Kn, B):
+        """The frozen per-plan fault contract (None when the fault model
+        has no runtime behavior): nominal per-worker round times from the
+        cost model, deadline ``tau = slack x predicted round time``, and
+        the exact delivery probabilities the HT reweighting divides by."""
+        fm = self.faults_obj
+        sys = self._priced_system
+        if not fm.runtime_active(sys.N):
+            return None
+        from ..faults import FaultSpec
+        Kn = np.asarray(Kn, np.float64)
+        # worker n's nominal time in one round: compute + its own upload
+        wt = B * sys.comp_time_coeff * Kn + sys.M_sn / sys.rn
+        # the Plan's predicted round time (eq. 17's per-round bracket)
+        round_t = B * float(np.max(sys.comp_time_coeff * Kn)) + sys.comm_time
+        deadline = float(fm.deadline_slack) * round_t
+        dp = fm.deliver_prob(wt, deadline)
+        return FaultSpec(model=fm, worker_times=tuple(float(t) for t in wt),
+                         deadline=deadline,
+                         deliver_p=tuple(float(p) for p in dp))
 
     def optimize(self, m=None, z0=None, tol: float = 1e-4,
                  max_iter: int = 60, verbose: bool = False,
@@ -227,24 +248,47 @@ class Scenario:
             raise not_ported(f"run backend {backend!r}", 9)
         with _obs.trace.span("scenario.run", backend=backend,
                              family=plan.family, rounds=plan.K0):
-            return self._run_reference(plan, task, seed, max_rounds,
-                                       eval_every, device)
+            report = self._run_reference(plan, task, seed, max_rounds,
+                                         eval_every, device)
+        if _obs.enabled():
+            # the drift ledger artifact: a pure function of the report (the
+            # report itself is identical with obs off; only this file write
+            # is added)
+            report.drift().to_jsonl(_obs.artifact_path(
+                f"ledger_{plan.family}_{backend}_seed{seed}.jsonl"))
+        return report
 
     def _report(self, plan: Plan, rounds: int, model_dim: int, wall: float,
-                final_metrics: dict, history) -> RunReport:
-        # full participation, priced at the Plan's wire.  Cost-model
-        # measurements evaluate on the *priced* system — the one whose
-        # M_s/q_s describe the family's codec — so measured_E/T are
-        # comparable to predicted_E/T within the same report.
+                final_metrics: dict, history, cohort_trace=None,
+                fault_trace=None) -> RunReport:
+        # priced at the Plan's wire.  Cost-model measurements evaluate on
+        # the *priced* system — the one whose M_s/q_s describe the family's
+        # codec — so measured_E/T are comparable to predicted_E/T within
+        # the same report.
+        if cohort_trace:
+            # sampled run: realized per-round cohort uploads, summed; the
+            # modeled energy is the expected energy at the Plan's pi_n —
+            # the same energy_cost(pi=...) the optimizer minimized.
+            trace = tuple(plan.cohort_round_bits(idx, dim=model_dim)
+                          for idx in cohort_trace)
+            comm = float(sum(trace))
+        else:
+            trace = ()
+            comm = rounds * plan.round_bits(dim=model_dim)
+        pi = None
+        if plan.cohort_S is not None:
+            pi = (np.full(plan.N, float(plan.cohort_S) / plan.N)
+                  if plan.sampling_p is None
+                  else float(plan.cohort_S) * np.asarray(plan.sampling_p))
         sys = self._priced_system
         Kn = np.asarray(plan.Kn)
         return RunReport(
             plan=plan, backend="reference", rounds=rounds,
-            model_dim=model_dim, wall_time_s=wall,
-            comm_bits=rounds * plan.round_bits(dim=model_dim),
-            measured_E=energy_cost(sys, rounds, Kn, plan.B),
+            model_dim=model_dim, wall_time_s=wall, comm_bits=comm,
+            measured_E=energy_cost(sys, rounds, Kn, plan.B, pi=pi),
             measured_T=time_cost(sys, rounds, Kn, plan.B),
-            final_metrics=dict(final_metrics), history=tuple(history))
+            final_metrics=dict(final_metrics), history=tuple(history),
+            round_bits_trace=trace, fault_trace=fault_trace)
 
     def _run_reference(self, plan, task, seed, max_rounds, eval_every,
                        device):
@@ -264,4 +308,6 @@ class Scenario:
             torch.cuda.synchronize(xf.device)
         wall = time.time() - t0
         final = task.metrics(xf)
-        return self._report(plan, cfg.K0, alg.dim, wall, final, hist)
+        return self._report(plan, cfg.K0, alg.dim, wall, final, hist,
+                            cohort_trace=alg.cohort_trace,
+                            fault_trace=alg.fault_trace)

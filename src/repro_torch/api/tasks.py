@@ -11,8 +11,9 @@ needs:
   metrics(params)         evaluation dict (used for history + final report)
 
 Provided: :class:`MNISTTask`, the paper's Sec.-VII 784-128-10 MLP on the
-synthetic MNIST-like set.  The quadratic test task and the SPMD task wait
-for their slices (ROADMAP.md, Queue 1, items 5 and 9).
+synthetic MNIST-like set, and :class:`QuadraticTask`, a tiny linear
+regression for tests and smoke runs.  The SPMD task waits for its slice
+(ROADMAP.md, Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from ..core.convergence import MLProblemConstants
 from ..data.federated import partition_iid
 from ..models import mlp
 
-__all__ = ["MNISTTask"]
+__all__ = ["MNISTTask", "QuadraticTask"]
 
 
 class MNISTTask:
@@ -96,3 +97,70 @@ class MNISTTask:
         d = mlp.estimate_constants(X, y, gen, n_iters=n_iters)
         return MLProblemConstants(L=d["L"], sigma=d["sigma"], G=d["G"],
                                   f_gap=d["f_gap"], N=N)
+
+
+class QuadraticTask:
+    """Noisy linear regression: params {"w": (dim,)}, closed-form optimum.
+
+    Small enough that a full optimized K0 executes in seconds — the task
+    the end-to-end Plan→RunReport tests drive.  ``true_w``, the inputs and
+    the targets come from NumPy generators seeded by ``seed`` (the JAX
+    package draws them with ``jax.random``, which torch cannot reproduce);
+    ``data=(true_w, X, T)`` takes given arrays instead, X of shape (N,
+    per_worker, dim) and T of shape (N, per_worker), so a test can build
+    this task from the JAX package's.
+    """
+
+    def __init__(self, dim: int = 8, per_worker: int = 64,
+                 noise: float = 0.01, seed: int = 0, device="cuda",
+                 data=None):
+        self.device = resolve_device(device)
+        self.noise = noise
+        self.seed = seed
+        self._given = None
+        if data is None:
+            true_w = np.random.default_rng(seed).standard_normal(dim)
+        else:
+            true_w, X, T = (np.array(a, np.float32) for a in data)
+            dim, per_worker = int(true_w.shape[0]), int(X.shape[1])
+            if X.shape[2:] != (dim,) or T.shape != X.shape[:2]:
+                raise ValueError(f"data shapes w {true_w.shape}, X {X.shape}, "
+                                 f"T {T.shape} do not fit (N, per_worker, "
+                                 f"dim)")
+            self._given = (X, T)
+        self.dim = dim
+        self.per_worker = per_worker
+        self.shapes = {"w": (dim,)}
+        self.true_w = torch.as_tensor(np.asarray(true_w, np.float32),
+                                      device=self.device)
+
+    def make_data(self, N: int):
+        if self._given is not None:
+            X, T = self._given
+            if X.shape[0] != N:
+                raise ValueError(f"the given data has {X.shape[0]} workers, "
+                                 f"asked for N={N}")
+        else:
+            X = np.random.default_rng((self.seed, 1)).standard_normal(
+                (N, self.per_worker, self.dim)).astype(np.float32)
+            eps = np.random.default_rng((self.seed, 2)).standard_normal(
+                (N, self.per_worker)).astype(np.float32)
+            T = X @ self.true_w.cpu().numpy() + np.float32(self.noise) * eps
+        return (torch.as_tensor(X, device=self.device),
+                torch.as_tensor(T, device=self.device))
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        del generator
+        return {"w": torch.zeros(self.dim, device=self.device)}
+
+    @staticmethod
+    def loss(params: dict, batch) -> torch.Tensor:
+        """Mean squared error over the batch axis (one value per model)."""
+        X, t = batch
+        pred = torch.matmul(X, params["w"].unsqueeze(-1)).squeeze(-1)
+        return torch.square(pred - t).mean(-1)
+
+    def metrics(self, params) -> dict:
+        w = params if isinstance(params, torch.Tensor) else params["w"]
+        with torch.no_grad():
+            return {"err": float(torch.linalg.vector_norm(w - self.true_w))}

@@ -30,7 +30,13 @@ The family hooks of the JAX package ride on the same round: weighted
 aggregation ``Δx̂ = Σ_n w_n Q(Δ_n)`` (``agg_weights``), GQFedWAvg's
 normalized-momentum local update (``momentum``/``normalize``) and the
 rotated codec (``codec_kind="rotated"``: rotate then K1/K2 per encode, the
-server apply in plain PyTorch).
+server apply in plain PyTorch).  Under client sampling or fault injection
+the round takes a length-N weight vector ``u`` and aggregates
+``Δx̂ = Σ_n u_n Q(Δ_n)`` (Horvitz-Thompson); ``run`` draws the cohorts and
+the faults on the host from NumPy streams seeded by ``cfg.seed``, so their
+traces do not depend on the device.  All N workers still train and encode
+(one batched K1/K2 launch of N rows); a worker outside the round's
+delivered cohort gets ``u_n = 0``, as in the JAX package.
 
 The flat vector orders the parameters by sorted name (b1, b2, w1, w2), as
 ``jax.tree.leaves`` does in the JAX package, so the same noise lands on the
@@ -39,6 +45,7 @@ same coordinates.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +55,8 @@ from .. import not_ported
 from ..compress import make_codec
 from ..data.federated import sample_indices
 from ..families import check_agg_weights, check_momentum
+from ..obs import REGISTRY as _METRICS
+from ..obs.metrics import GLOBAL_SWITCH as _OBS_ON
 from .step_rules import StepRule
 
 __all__ = ["GenQSGDConfig", "GenQSGD", "flatten_like", "unflatten_like"]
@@ -81,8 +90,11 @@ class GenQSGDConfig:
     The family hooks ride along as plain fields: ``agg_weights`` turns the
     server mean into a weighted sum, ``momentum``/``normalize`` select
     GQFedWAvg's normalized momentum local update, ``codec_kind`` the
-    quantizer preconditioner.  The defaults are GenQSGD (Algorithm 1).
-    Sampling, faults and per-bucket norms raise (ROADMAP.md, Queue 1).
+    quantizer preconditioner; ``sampling_S``/``sampling_p`` draw a seeded
+    cohort each round and ``faults`` (a
+    :class:`~repro_torch.faults.FaultSpec`) seeded faults.  The defaults
+    are GenQSGD (Algorithm 1).  Per-bucket norms raise (ROADMAP.md,
+    Queue 1, item 2).
     """
     K0: int                      # global iterations
     Kn: Tuple[int, ...]          # per-worker local iterations (len N)
@@ -97,7 +109,7 @@ class GenQSGDConfig:
     codec_kind: str = "qsgd"     # make_codec kind
     sampling_S: Optional[int] = None  # per-round cohort size (None = full)
     sampling_p: Optional[Tuple[float, ...]] = None  # base probs (None = unif)
-    seed: Optional[int] = None   # cohort/fault rng seed
+    seed: Optional[int] = None   # cohort/fault rng seed (None = OS entropy)
     faults: Optional[object] = None  # FaultSpec (None = no faults)
 
     def __post_init__(self):
@@ -108,10 +120,29 @@ class GenQSGDConfig:
                                check_agg_weights(self.agg_weights,
                                                  len(self.Kn)))
         check_momentum(self.momentum)
-        if self.sampling_S is not None or self.sampling_p is not None:
-            raise not_ported("client sampling in the runtime", 6)
+        if self.sampling_p is not None and self.sampling_S is None:
+            raise ValueError("sampling_p given without sampling_S")
+        if self.sampling_S is not None:
+            from ..sampling.base import check_probs  # cycle
+            S = int(self.sampling_S)
+            if not 1 <= S <= self.N:
+                raise ValueError(f"sampling_S={S} outside [1, N={self.N}]")
+            object.__setattr__(self, "sampling_S", S)
+            if self.sampling_p is not None:
+                p = check_probs(self.sampling_p, self.N)
+                if S * max(p) > 1.0 + 1e-9:
+                    raise ValueError(
+                        f"inclusion probability S*max(p)={S * max(p):.4g} "
+                        f"exceeds 1")
+                object.__setattr__(self, "sampling_p", p)
         if self.faults is not None:
-            raise not_ported("fault injection in the runtime", 6)
+            from ..faults import FaultSpec  # cycle
+            if not isinstance(self.faults, FaultSpec):
+                raise TypeError(f"faults must be a repro_torch.faults."
+                                f"FaultSpec, got {type(self.faults)}")
+            if self.faults.N != self.N:
+                raise ValueError(f"FaultSpec describes {self.faults.N} "
+                                 f"workers, config has {self.N}")
 
     @property
     def N(self) -> int:
@@ -231,13 +262,23 @@ class GenQSGD:
                             for i, c in enumerate(codecs)])
 
     def round(self, x_hat_flat: torch.Tensor, idx: torch.Tensor,
-              u_workers: torch.Tensor, u_server: torch.Tensor, gamma):
+              u_workers: torch.Tensor, u_server: torch.Tensor, gamma,
+              u: Optional[torch.Tensor] = None):
         """One global iteration (Algorithm 1, lines 3-10) -> (x̂_new flat,
-        metrics of device scalars)."""
+        metrics of device scalars).
+
+        ``u`` (length N, float32 on the run's device; only under client
+        sampling or faults) replaces the server aggregation with the
+        Horvitz-Thompson weighted sum ``Σ_n u_n Q(Δ_n)``: ``u_n = 0``
+        drops a worker outside the round's delivered cohort and the rest
+        are reweighted so the round is an unbiased estimate of the full
+        one."""
         g = float(np.float32(gamma))     # the step size as the f32 it is
         deltas = self._upload(self.worker_deltas(x_hat_flat, idx, g),
                               u_workers)
-        if self._agg is None:
+        if u is not None:                # sampled round: reweighted cohort
+            delta_hat = torch.tensordot(u, deltas, dims=1)
+        elif self._agg is None:
             delta_hat = deltas.mean(dim=0)
         else:                            # general weighted aggregation
             delta_hat = torch.tensordot(self._agg, deltas, dims=1)
@@ -253,24 +294,95 @@ class GenQSGD:
     def run(self, x0_flat: torch.Tensor, generator: torch.Generator,
             eval_fn=None, eval_every: int = 10):
         """Full K0-round driver -> (x* flat, history).  Each round draws
-        its mini-batch indices and quantizer noise from ``generator``."""
+        its mini-batch indices and quantizer noise from ``generator``.
+
+        Under client sampling (``cfg.sampling_S``) each round draws a
+        cohort from ``np.random.default_rng(cfg.seed)`` and aggregates it
+        with unbiased Horvitz-Thompson weights; ``self.cohort_trace``
+        records the drawn cohort indices per round.  Under fault injection
+        (``cfg.faults``) each round also draws faults from the separate
+        ``fault_rng(cfg.seed)`` stream (so the cohort sequence is unchanged
+        by the fault model), excludes crashed / timed-out / corrupted
+        workers and divides the survivors' weights by their delivery
+        probabilities; ``self.fault_trace`` is the run's
+        :class:`~repro_torch.faults.FaultTrace`.  Unsampled, unfaulted
+        configs take the plain mean (or ``agg_weights``) path.
+        """
+        from ..sampling.base import cohort_weights, draw_cohort  # cycle
         cfg = self.cfg
         gammas = cfg.step_rule.sequence(cfg.K0)
         N, M = cfg.N, self.msg_dim
         x = x0_flat
         history = []
+        self.cohort_trace = []
+        self.fault_trace = None
+        rng = (np.random.default_rng(cfg.seed)
+               if cfg.sampling_S is not None else None)
+        fdrv = None
+        if cfg.faults is not None:
+            from ..faults import FaultDriver, fault_rng  # cycle
+            fdrv = FaultDriver(cfg.faults, N, cfg.agg_weights)
+            frng = fault_rng(cfg.seed)
+        # round metrics (repro_torch.obs): priced from the static config
+        # and the host-side cohort/fault records only, so the round itself
+        # is untouched and a disabled run pays one boolean check a round
+        obs_on = _OBS_ON.on
+        if obs_on:
+            up_bits = [c.wire_bits(self.dim) for c in self.worker_codecs]
+            down_bits = self.server_codec.wire_bits(self.dim)
+            round_h = _METRICS.histogram("run.round_s", backend="reference")
+            htvar_h = _METRICS.histogram("run.ht_weight_var",
+                                         backend="reference")
+            bits_c = _METRICS.counter("run.wire_bits", backend="reference",
+                                      codec=cfg.codec_kind)
+            rounds_c = _METRICS.counter("run.rounds", backend="reference")
         for k0 in range(cfg.K0):
+            t0 = time.perf_counter() if obs_on else 0.0
             idx = sample_indices(generator, self.n_local, N, cfg.K_max,
                                  cfg.B)
             u_w = torch.rand((N, M), generator=generator, device=self.device)
             u_s = torch.rand((M,), generator=generator, device=self.device)
-            x, m = self.round(x, idx, u_w, u_s, gammas[k0])
+            cohort = pi = u = None
+            if rng is not None:
+                cohort, pi = draw_cohort(rng, N, cfg.sampling_S,
+                                         cfg.sampling_p)
+                self.cohort_trace.append(cohort)
+            if fdrv is not None:
+                u = fdrv.step(frng, k0, cohort, pi)
+            elif cohort is not None:    # sampling only: the plain HT path
+                u = cohort_weights(cohort, pi, N, cfg.agg_weights)
+            u_t = None if u is None else torch.as_tensor(
+                u, dtype=torch.float32, device=self.device)
+            x, m = self.round(x, idx, u_w, u_s, gammas[k0], u_t)
+            if obs_on:
+                # launches are asynchronous: this is the host loop's time
+                # a round (exact where an eval forces a sync), never an
+                # added synchronize — observing must not serialize
+                round_h.observe(time.perf_counter() - t0)
+                rounds_c.inc()
+                if u is not None:
+                    # plain-python variance: np.var costs ~15us of ufunc
+                    # dispatch for a length-N vector
+                    ul = u.tolist()
+                    mu = sum(ul) / len(ul)
+                    htvar_h.observe(sum((v - mu) ** 2 for v in ul) / len(ul))
+                if fdrv is not None:
+                    rec = fdrv.last   # crashed workers never reach the wire
+                    senders = (rec.cohort if not rec.crashed
+                               else set(rec.cohort) - set(rec.crashed))
+                elif cohort is not None:
+                    senders = set(int(i) for i in cohort)
+                else:
+                    senders = range(N)
+                bits_c.inc(sum(up_bits[i] for i in senders) + down_bits)
             if eval_fn is not None and (k0 % eval_every == 0
                                         or k0 == cfg.K0 - 1):
                 e = eval_fn(x)
                 e.update({k: float(v) for k, v in m.items()})
                 e["k0"] = k0
                 history.append(e)
+        if fdrv is not None:
+            self.fault_trace = fdrv.trace()
         return x, history
 
 

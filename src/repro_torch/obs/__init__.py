@@ -1,11 +1,11 @@
 """repro_torch.obs — spans, metrics, and the predicted-vs-measured drift ledger.
 
-Off by default and provably inert: until :func:`enable` flips the global
-switch, every ``trace.span`` returns a shared no-op context manager, every
+Off by default and inert: until :func:`enable` flips the global switch,
+every ``trace.span`` returns a shared no-op context manager, every
 global-registry instrument drops its sample after one attribute check, and
-enabling it leaves Plan / RunReport / FaultTrace **bit-identical** (asserted
-by ``tests/unit/test_obs.py`` and hard-gated, with <2% overhead, by
-``benchmarks/obs_bench.py``).
+enabling it leaves Plan / RunReport (apart from wall time) / FaultTrace
+identical (asserted for the port by ``tests/test_torch_sampling.py`` and
+``tests/test_torch_faults.py``, and on the card by ``chip_smoke.py``).
 
 Quickstart::
 
@@ -17,10 +17,12 @@ Quickstart::
     print(obs.REGISTRY.to_prometheus())      # metrics text dump
     obs.trace.save("results/obs/trace.json") # open at ui.perfetto.dev
 
-Instrumented call sites record only at natural host boundaries (dispatch
-wrappers, queue hand-offs, resolution callbacks) — never inside traced JAX
-code — so jitted ``lax.while_loop`` paths gain zero extra compiles and zero
-host syncs (asserted via the ``TRACE_COUNTS`` hook in ``repro.opt.gia_jax``).
+Instrumented call sites record only at host boundaries (``Scenario``'s
+optimize and run spans, the reference runtime's round loop,
+``FaultDriver.step``) and read the host clock without synchronizing the
+card, so observing adds no device work and no wait; with obs on,
+``Scenario.run`` also writes the run's drift ledger under
+:func:`artifact_dir`.
 """
 from __future__ import annotations
 

@@ -45,6 +45,9 @@ def _equal_plans(a, b):
             x, y = (type(x).__name__, x.gamma), (type(y).__name__, y.gamma)
         elif f.name == "objective":
             x, y = x.value, y.value
+        elif f.name == "faults" and x is not None and y is not None:
+            x, y = ((type(v).__name__, type(v.model).__name__,
+                     dataclasses.asdict(v)) for v in (x, y))
         assert x == y or (x != x and y != y), (f.name, x, y)
 
 
@@ -153,13 +156,21 @@ def test_short_run_matches_reference_spread(tasks):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"sampling": "uniform"}, 6),
-    ({"faults": "edge"}, 6),
+    pytest.param({"sampling": "uniform"}, None, id="sampling-constructs"),
+    pytest.param({"faults": "edge"}, None, id="faults-constructs"),
     ({"system": dataclasses.replace(EdgeSystem.paper_sec_vii(), q_dim=4096)},
      2),
 ])
 def test_scenario_outside_the_slice_raises(kw, item):
+    """What the port does not carry raises naming its item; sampling and
+    fault models (item 6) construct."""
     kw = {"system": EdgeSystem.paper_sec_vii(), **kw}
+    if item is None:
+        scn = Scenario(consts=MLProblemConstants(**CONSTS), T_max=1e5,
+                       C_max=0.25, **kw)
+        assert scn.sampling_obj.key == kw.get("sampling", "full")
+        assert scn.faults_obj.key == kw.get("faults", "none")
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Scenario(consts=MLProblemConstants(**CONSTS), T_max=1e5, C_max=0.25,
                  **kw)
@@ -179,11 +190,19 @@ def test_entry_points_outside_the_slice_raise(call, item):
         call(scn)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"bucket": 4096}, 2), ({"sampling_S": 4}, 6), ({"faults": object()}, 6),
+@pytest.mark.parametrize("kw,error,match", [
+    pytest.param({"bucket": 4096}, NotImplementedError, "item 2",
+                 id="kw0-2"),
+    pytest.param({"sampling_S": N + 1}, ValueError, "outside",
+                 id="bad-sampling_S"),
+    pytest.param({"faults": object()}, TypeError, "FaultSpec",
+                 id="faults-not-a-FaultSpec"),
 ])
-def test_runtime_outside_the_slice_raises(kw, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+def test_runtime_outside_the_slice_raises(kw, error, match):
+    """Per-bucket norms are not ported (item 2); sampling and faults are,
+    and a malformed cohort size or fault contract is refused as in the
+    JAX package."""
+    with pytest.raises(error, match=match):
         GenQSGDConfig(K0=1, Kn=(1,) * N, B=1, step_rule=ConstantRule(0.1),
                       **kw)
 
