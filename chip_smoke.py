@@ -6,8 +6,8 @@ in PERF.md).
 
 Phases, each of which fails the script on error:
   1. build: nvcc compiles ``src/repro_torch/csrc/*.cu`` (``qsgd.cu``,
-     ``fused_encode.cu`` and ``flash_decode.cu``) for sm_90a into
-     ``build/`` (one nvcc per source, all started together);
+     ``fused_encode.cu``, ``flash_decode.cu`` and ``elias.cu``) for sm_90a
+     into ``build/`` (one nvcc per source, all started together);
   2. kernels vs plain: every QSGD kernel against its plain PyTorch version
      on the card.  K1-K3 at the main paths' shapes (10 and 1 rows of
      D = 101,770 for GenQSGD, of d' = 2^17 for GQFedWAvg) and at a
@@ -33,7 +33,18 @@ Phases, each of which fails the script on error:
      each kernel's time
      beside its plain version's, its byte bound and a one-call PyTorch
      yardstick where one exists (device times from CUDA-graph replay,
-     beside the eager call's time with its host work);
+     beside the eager call's time with its host work).  For QSGD
+     bucketing: K1/K2 on bucket rows (250 x 4096 and 25 x 4096, the
+     bucketed quickstart's worker and server rows; 127,220 x 8, above one
+     grid: two launches each), K2 bitwise and K1's norm within rtol 1e-6;
+     K3b (one norm per bucket) at D for q in {8, 4095, 4096, D, 2^20}
+     bitwise its plain version on both branches and bitwise K3 at q >= D;
+     K4 over the bucket rows of ten deltas at q in {8, 4095, 4096}, the
+     flat int4 payload byte-identical to the plain quantize + flat pack
+     given the kernel's norms.  ``elias_decode`` on streams of
+     ``encode_levels`` at d in {1,000, D} x s in {7, 127} and (10, D) at
+     s = 127: the levels equal the host's plain walk and the input.  Each
+     timed beside its bytes bound;
   3. main path: the README quickstart loop on the card (the task on
      ``cuda:0``, the run on the default ``"cuda"``; and the converse for
      one round) —
@@ -43,7 +54,13 @@ Phases, each of which fails the script on error:
      just before the run and read just after; one round on the card is
      also held against the same round on the CPU (plain versions) with the
      same draws, and 20 rounds are profiled (device time by kernel, the
-     device's busy share);
+     device's busy share); then the bucketed quickstart, the same loop on
+     the system with ``q_dim = 4096`` (25 buckets of D), counters read
+     around ``run(plan, max_rounds=400)`` (K1/K2 800, K3b 400, K3 and every
+     plain version 0), comm bits ``rounds * (sum M_sn + M_s0)`` at the
+     bucketed wire's bits, one round on the card against the CPU, the
+     bucketed and the whole-message round timed in turns (6 pairs of 40
+     rounds on the same draws), 20 rounds profiled;
   4. sampling and faults on the same task and constants:
      ``Scenario(..., T_max=2e5, sampling=uniform(8), faults=edge_faults(
      stragglers 0.3 x 4, crashes 0.05 for 3 rounds, corruption 0.01,
@@ -73,7 +90,10 @@ Phases, each of which fails the script on error:
      against the plain versions on the same y and u (the norm within
      rtol 1e-6, the bytes identical given the kernel's norm) and against
      ``decode(*encode(y, u))``; K4's calls by route are logged, at least
-     one of them in one launch;
+     one of them in one launch.  Then bucket 4096 on the int4, int8 and
+     packed wires, and wire "elias" at s in {7, 127} with and without
+     buckets (the elias streams decoded by ``elias_decode``), each held
+     against the plain versions and ``decode(*encode(y, u))``;
   7. flash decode (K6) against its plain version on the card, within
      rtol/atol 1e-5 (both accumulate in f32; a bf16 output within one bf16
      ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
@@ -156,6 +176,21 @@ SAMPLED_ROUNDS = 400
 #: phase 5's GQFedWAvg rounds, short enough to keep the whole script near
 #: its time budget
 WAVG_ROUNDS = 100
+#: QSGD bucketing: the quickstart system with q_dim = 4096 (25 buckets of
+#: D, the last holding 3,466 coordinates)
+BUCKET = 4096
+#: K1/K2 on bucket rows (rows, q): the bucketed quickstart's worker and
+#: server rows, and q = 8 over ten deltas (127,220 rows, above one grid)
+BUCKET_K1_SHAPES = ((10 * 25, BUCKET), (25, BUCKET), (10 * 12722, 8))
+#: K3b's bucket lengths at D (q >= D is one bucket: K3's bytes) and K4's
+#: over bucket rows of ten deltas (odd, even, and 127,220 rows)
+K3B_QS = (8, 4095, BUCKET, MAIN_D, 1 << 20)
+K4_BUCKET_QS = (8, 4095, BUCKET)
+BUCKETED_ROUNDS = 400
+#: elias_decode's check streams (d, s), and the messages of the elias
+#: payloads (the host's plain decode walks every stream in Python)
+ELIAS_CASES = ((1000, 7), (1000, 127), (MAIN_D, 7), (MAIN_D, 127))
+ELIAS_NS = (1000, (1 << 15) + 1, MAIN_D)
 #: the serving run of phase 8: qwen3-1.7b at full width, 8 slots of 4096
 #: positions, 16 requests of 256-2048 prompt tokens and 32 new tokens
 SERVE_ARCH = "qwen3-1.7b"
@@ -196,6 +231,9 @@ REPLACES = {
     "fused_encode": "src/repro/kernels/qsgd.py:213",
     "fused_rotate_encode": "src/repro/kernels/qsgd.py:280",
     "flash_decode": "src/repro/kernels/flash_decode.py:81",
+    # port-only kernels: no pl.pallas_call; the jnp function each replaces
+    "qsgd_dequant_apply_bucketed": "src/repro/compress/backends.py:224",
+    "elias_decode": "src/repro/compress/elias.py:256",
 }
 SOURCES = {
     "qsgd_sumsq": "src/repro_torch/csrc/qsgd.cu",
@@ -204,6 +242,8 @@ SOURCES = {
     "fused_encode": "src/repro_torch/csrc/fused_encode.cu",
     "fused_rotate_encode": "src/repro_torch/csrc/fused_encode.cu",
     "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+    "qsgd_dequant_apply_bucketed": "src/repro_torch/csrc/qsgd.cu",
+    "elias_decode": "src/repro_torch/csrc/elias.cu",
 }
 
 
@@ -426,19 +466,27 @@ def k3_branch(x, lvl, out) -> str:
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import elias as KE
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import fused_encode as FE
     from repro_torch.kernels import qsgd as K
     K.reset_launches()
     FE.reset_launches()
     FD.reset_launches()
+    KE.reset_launches()
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels import elias as KE
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import fused_encode as FE
     from repro_torch.kernels import qsgd as K
-    return {**K.LAUNCHES, **FE.LAUNCHES, **FD.LAUNCHES}
+    return {**K.LAUNCHES, **FE.LAUNCHES, **FD.LAUNCHES, **KE.LAUNCHES}
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's launch count 0 but the ones given."""
+    return {**dict.fromkeys(read_launches(), 0), **counts}
 
 
 def payload_given_norm(y, u, s, norm, pack: bool):
@@ -759,6 +807,219 @@ def k4_route_checks(dev, gen, check) -> None:
         torch.cuda.synchronize()             # the refusal left no error
 
 
+def phase_bucket_kernels(dev) -> dict:
+    """Phase 2 for QSGD bucketing, on ``dev``: K1/K2 on bucket rows (K2
+    bitwise given inv, K1's norm within rtol 1e-6; 127,220 rows launch in
+    two chunks of rows), K3b at D for q in K3B_QS bitwise its plain version
+    on both branches and, at q >= D, bitwise K3; K4 over the bucket rows
+    of ten deltas, its flat payload byte-identical to the plain quantize +
+    flat pack fed the kernel's norms.  Then their times at the bucketed
+    quickstart's shapes."""
+    import torch
+    from repro_torch.compress import backends as B
+    from repro_torch.compress.wire import pack_int4
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    worst = {"qsgd_dequant_apply_bucketed": 0.0}
+    for rows, q in BUCKET_K1_SHAPES:
+        y = torch.randn(rows, q, generator=gen, device=dev) * 3.0
+        u = torch.rand(rows, q, generator=gen, device=dev)
+        chunks = len(K.row_chunks(rows))
+        for s in (127, 16384):
+            before = dict(K.LAUNCHES)
+            _, norm, inv = K.qsgd_sumsq(y, s)
+            lvl = K.qsgd_quantize(y, u, inv, s)
+            sync()
+            torch.testing.assert_close(norm, K.sumsq_plain(y, s)[1],
+                                       rtol=1e-6, atol=0)
+            if not torch.equal(lvl, K.quantize_plain(y, u, inv, s)):
+                raise AssertionError(f"K2 on bucket rows ({rows}, {q}) s={s} "
+                                     f"differs from the plain version")
+            got = [K.LAUNCHES[k] - before[k]
+                   for k in ("qsgd_sumsq", "qsgd_quantize")]
+            if card and got != [chunks, chunks]:
+                raise AssertionError(f"K1/K2 on {rows} rows launched {got} "
+                                     f"times, want {chunks} each")
+        log(f"[bucket] K1/K2 on bucket rows ({rows}, {q}), s in (127, "
+            f"16384): K1 norm within rtol 1e-6, K2 bitwise, {chunks} "
+            f"launch(es) each")
+
+    n = MAIN_D
+    x = torch.randn(n, generator=gen, device=dev)
+    for s in (127, 16384):
+        mat = torch.randint(-s, s + 1, (10, n), generator=gen,
+                            device=dev).to(K.level_dtype(s))
+        for q in K3B_QS:
+            norms = torch.rand(-(-n // q), generator=gen, device=dev) * 5.0
+            for row in (0, 1):        # row 1: off x's 16-byte phase
+                lvl = mat[row]
+                out = K.qsgd_dequant_apply_bucketed(x, lvl, norms, s, 0.05, q)
+                want = K.dequant_apply_bucketed_plain(x, lvl, norms, s,
+                                                      0.05, q)
+                sync()
+                branch = k3_branch(x, lvl, out)
+                if not torch.equal(out.view(torch.int32),
+                                   want.view(torch.int32)):
+                    bad = (out != want).nonzero()
+                    raise AssertionError(
+                        f"K3b differs from its plain version at {len(bad)} "
+                        f"of {n} (q={q} s={s} level row {row}, {branch} "
+                        f"branch; first at {bad[:4].flatten().tolist()})")
+                if q >= n and not torch.equal(
+                        out.view(torch.int32), K.qsgd_dequant_apply(
+                            x, lvl, norms, s, 0.05).view(torch.int32)):
+                    raise AssertionError(f"K3b at q={q} >= D is not K3 bit "
+                                         f"for bit ({branch} branch)")
+                worst["qsgd_dequant_apply_bucketed"] = max(
+                    worst["qsgd_dequant_apply_bucketed"],
+                    float((out - want).abs().max()))
+        log(f"[bucket] K3b at n={n}, s={s}, q in {K3B_QS}: bitwise its plain "
+            f"version on level rows 0 ({k3_branch(x, mat[0], x)}) and 1 "
+            f"({k3_branch(x, mat[1], x)}); bitwise K3 at q >= D")
+
+    y = torch.randn(10, n, generator=gen, device=dev) * 3.0
+    u = torch.rand(10, n, generator=gen, device=dev)
+    for q in K4_BUCKET_QS:
+        before = FE.LAUNCHES["fused_encode"]
+        packed, norms = B.encode_fused_bucketed(y, 7, u, q, pack=True)
+        sync()
+        yb, ub = (B.to_buckets(t, q).reshape(-1, q) for t in (y, u))
+        torch.testing.assert_close(norms.reshape(-1), K.sumsq_plain(yb, 7)[1],
+                                   rtol=1e-6, atol=0)
+        flat = payload_given_norm(yb, ub, 7, norms.reshape(-1), False) \
+            .reshape(10, -1)[:, :n]
+        if not torch.equal(packed, pack_int4(flat)):
+            raise AssertionError(f"K4 over bucket rows q={q}: the flat "
+                                 f"payload differs from the plain pack")
+        launches = FE.LAUNCHES["fused_encode"] - before
+        if card and launches != len(K.row_chunks(yb.shape[0])):
+            raise AssertionError(f"K4 on {yb.shape[0]} rows launched "
+                                 f"{launches} times")
+        log(f"[bucket] K4 over ({yb.shape[0]}, {q}) bucket rows of (10, {n})"
+            f" ({'packed rows' if q % 2 == 0 else 'int8 rows, flat pack'}, "
+            f"{launches} launch(es)): bytes equal to the plain quantize + "
+            f"flat pack given the kernel's norms")
+    if not card:
+        return {"worst": worst, "main": {}}
+
+    # times at the bucketed quickstart's shapes (s = 2^14: int32 levels)
+    s = 16384
+    main = {}
+    for rows, q in BUCKET_K1_SHAPES:
+        y = torch.randn(rows, q, generator=gen, device=dev)
+        u = torch.rand(rows, q, generator=gen, device=dev)
+        inv = K.qsgd_sumsq(y, s)[2]
+        e = rows * q
+        for name, kern, plain, lib, (bnd, by) in (
+                ("qsgd_sumsq", lambda: K.qsgd_sumsq(y, s),
+                 lambda: K.sumsq_plain(y, s),
+                 lambda: torch.linalg.vector_norm(y, dim=-1),
+                 bound_ms(4 * e + 12 * rows, 2 * e)),
+                ("qsgd_quantize", lambda: K.qsgd_quantize(y, u, inv, s),
+                 lambda: K.quantize_plain(y, u, inv, s), None,
+                 bound_ms(12 * e + 4 * rows, 6 * e))):
+            ms, pl = device_ms(kern), device_ms(plain)
+            lb = None if lib is None else device_ms(lib)
+            log(f"[time] {name} bucket rows=({rows}, {q}): kernel "
+                f"{ms * 1e3:.2f} us, plain {pl * 1e3:.2f} us, library "
+                f"{'n/a' if lb is None else f'{lb * 1e3:.2f} us'}, bound "
+                f"{bnd * 1e3:.2f} us ({by}), {len(K.row_chunks(rows))} "
+                f"launch(es)")
+    y = torch.randn(250, BUCKET, generator=gen, device=dev)
+    u = torch.rand(250, BUCKET, generator=gen, device=dev)
+    e = y.numel()
+    bnd, by = bound_ms(8 * e + e // 2 + 4 * 250, 8 * e)
+    ms = device_ms(lambda: FE.fused_encode(y, u, 7, True))
+    pl = device_ms(lambda: FE.fused_encode_plain(y, u, 7, True))
+    log(f"[time] fused_encode bucket rows=(250, {BUCKET}) s=7 packed: kernel "
+        f"{ms * 1e3:.2f} us, plain {pl * 1e3:.2f} us, library n/a, bound "
+        f"{bnd * 1e3:.2f} us ({by}), route "
+        f"{FE.k4_route(250, BUCKET, FE._capacity(dev))}")
+    lvl = torch.randint(-s, s + 1, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for q in (BUCKET, 8):
+        norms = torch.rand(-(-n // q), generator=gen, device=dev)
+        kern = (lambda norms=norms, q=q:
+                K.qsgd_dequant_apply_bucketed(x, lvl, norms, s, 0.05, q))
+        plain = (lambda norms=norms, q=q:
+                 K.dequant_apply_bucketed_plain(x, lvl, norms, s, 0.05, q))
+        bnd, by = bound_ms(12 * n + 4 * norms.numel(), 3 * n)
+        ms, pl = device_ms(kern), device_ms(plain)
+        log(f"[time] qsgd_dequant_apply_bucketed n={n} q={q}: kernel "
+            f"{ms * 1e3:.2f} us (eager call {eager_ms(kern) * 1e3:.2f} us), "
+            f"plain {pl * 1e3:.2f} us, library n/a (no one PyTorch call "
+            f"scales by bucket), bound {bnd * 1e3:.2f} us ({by})")
+        if q == BUCKET:
+            main["qsgd_dequant_apply_bucketed"] = (ms, pl, None, (bnd, by))
+    return {"worst": worst, "main": main}
+
+
+def phase_elias_kernel(dev) -> dict:
+    """elias_decode against its plain version (the same walk on the host)
+    on streams from ``encode_levels`` of QSGD levels at each (d, s) of
+    ELIAS_CASES and of ten rows of D at s = 127: the levels equal the plain
+    decode's and the input; then its time beside its bytes bound and the
+    host walk's time (plain_ms in the JSON line is that host time)."""
+    import torch
+    from repro_torch.compress import elias as E
+    from repro_torch.compress import make_codec
+    from repro_torch.kernels import elias as KE
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    streams = []
+    for shape, s in [((d,), s) for d, s in ELIAS_CASES] + [((10, MAIN_D),
+                                                            127)]:
+        y = torch.randn(*shape, generator=gen, device=dev)
+        u = torch.rand(*shape, generator=gen, device=dev)
+        lvl = make_codec(s).encode(y, u)[0]
+        words, nbits = E.encode_levels(lvl)
+        d = shape[-1]
+        out = KE.elias_decode(words, d)
+        if card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = KE.elias_decode_plain(words.cpu(), d)
+        host = time.perf_counter() - t0
+        if not (torch.equal(out.cpu(), plain) and torch.equal(out, lvl)):
+            raise AssertionError(f"elias_decode {shape} s={s}: differs from "
+                                 f"the plain decode or the input")
+        log(f"[elias] decode {shape} s={s}: {int((lvl != 0).sum())} nonzero "
+            f"levels, {int(nbits.sum())} stream bits, equal to the plain "
+            f"decode (host walk {host * 1e3:.1f} ms) and to the input")
+        streams.append((shape, s, words, nbits, host))
+    if not card:
+        return {"worst": {"elias_decode": 0.0}, "main": {}}
+    main = {}
+    for shape, s, words, nbits, host in streams:
+        if shape not in ((MAIN_D,), (10, MAIN_D)):
+            continue
+        d = shape[-1]
+        kern = (lambda words=words, d=d: KE.elias_decode(words, d))
+        ms = device_ms(kern, reps=5, trials=3)
+        rows = words.numel() // words.shape[-1]
+        bits = float(nbits.sum())
+        bnd, by = bound_ms(bits / 8 + rows * d, 0)
+        log(f"[time] elias_decode {shape} s={s}: kernel {ms * 1e3:.2f} us "
+            f"({bits / rows / (ms * 1e3):.1f} stream bits/us a row, one "
+            f"thread a row), plain (host walk) {host * 1e3:.2f} ms, library "
+            f"n/a, bound {bnd * 1e3:.3f} us ({by}; a sequential walk is "
+            f"latency-bound)")
+        if shape == (MAIN_D,) and s == 127:
+            main["elias_decode"] = (ms, host * 1e3, None, (bnd, by))
+    return {"worst": {"elias_decode": 0.0}, "main": main}
+
+
 def phase_main_path() -> dict:
     import numpy as np
     import torch
@@ -811,10 +1072,9 @@ def phase_main_path() -> dict:
         raise AssertionError(f"the run did not learn: {m}")
     workers = 1 if len(set(plan.sn)) == 1 else plan.N
     server = 0 if plan.s0 is None else 1
-    want = {"qsgd_sumsq": rounds * (workers + server),
-            "qsgd_quantize": rounds * (workers + server),
-            "qsgd_dequant_apply": rounds * server,
-            "fused_encode": 0, "fused_rotate_encode": 0, "flash_decode": 0}
+    want = expected_launches(qsgd_sumsq=rounds * (workers + server),
+                             qsgd_quantize=rounds * (workers + server),
+                             qsgd_dequant_apply=rounds * server)
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
     for name in ("qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply"):
@@ -897,9 +1157,9 @@ def phase_sampled_faults(task, consts, rounds: int = SAMPLED_ROUNDS,
         f"{ft.workers_dropped} worker-rounds dropped, tau "
         f"{min(r.deadline for r in ft.records):.4g}.."
         f"{max(r.deadline for r in ft.records):.4g} s")
-    want = {"qsgd_sumsq": 2 * rounds, "qsgd_quantize": 2 * rounds,
-            "qsgd_dequant_apply": rounds, "fused_encode": 0,
-            "fused_rotate_encode": 0, "flash_decode": 0}
+    want = expected_launches(qsgd_sumsq=2 * rounds,
+                             qsgd_quantize=2 * rounds,
+                             qsgd_dequant_apply=rounds)
     if len(set(plan.sn)) != 1 or launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
 
@@ -1091,10 +1351,8 @@ def phase_gqfedwavg(task, consts, max_rounds: int = WAVG_ROUNDS,
                              f"(sum M_sn + M_s0) = {want_bits} at the rotated "
                              f"pricing {msg[-1]} bits/message")
     workers = 1 if len(set(plan.sn)) == 1 else plan.N
-    want = {"qsgd_sumsq": rounds * (workers + 1),
-            "qsgd_quantize": rounds * (workers + 1),
-            "qsgd_dequant_apply": 0, "fused_encode": 0,
-            "fused_rotate_encode": 0, "flash_decode": 0}
+    want = expected_launches(qsgd_sumsq=rounds * (workers + 1),
+                             qsgd_quantize=rounds * (workers + 1))
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
     x0 = flatten_like(task.init_params(
@@ -1251,6 +1509,274 @@ def phase_payload(deltas) -> dict:
         log(f"[payload] {kind}/{wire} s={s} {name}: m={m} nbits={nbits} "
             f"{'K5' if k5 else 'K4' if wire == 'int4' else 'K1/K2'}, "
             f"{nflip} level flips")
+    return {"launches": launches}
+
+
+def count_plain_calls():
+    """Wrap every kernel's plain version in its module with a counter: ->
+    (counts, undo).  The wrappers look their plain versions up in their
+    own module, so a plain version that runs on the path shows here."""
+    from repro_torch.kernels import elias as KE
+    from repro_torch.kernels import fused_encode as FE
+    from repro_torch.kernels import qsgd as K
+    counts, saved = {}, []
+    for mod, name in ((K, "sumsq_plain"), (K, "quantize_plain"),
+                      (K, "dequant_apply_plain"),
+                      (K, "dequant_apply_bucketed_plain"),
+                      (FE, "fused_encode_plain"),
+                      (FE, "fused_rotate_encode_plain"),
+                      (KE, "elias_decode_plain")):
+        fn = getattr(mod, name)
+        counts[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return counts, undo
+
+
+def phase_bucketed(task, consts, rounds: int = BUCKETED_ROUNDS,
+                   profile: bool = True) -> dict:
+    """The bucketed quickstart at full width on ``task``'s device: the
+    README system with q_dim = 4096, ``optimize()`` -> ``run(plan,
+    max_rounds=400)`` with the counters read around the run (K1/K2 over the
+    workers' 250 and the server's 25 bucket rows, K3b the apply; K3 and
+    every plain version never), comm bits rounds * (sum M_sn + M_s0) at
+    the bucketed wire's bits, one round on the device against the CPU with
+    the same draws, 20 rounds profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.api import EdgeSystem, MNISTTask, Scenario
+    from repro_torch.core.genqsgd import GenQSGD, flatten_like
+
+    dev = task.device
+    system = dataclasses.replace(EdgeSystem.paper_sec_vii(dim=task.dim),
+                                 q_dim=BUCKET)
+    scenario = Scenario(system=system, consts=consts, T_max=1e5, C_max=0.25)
+    t0 = time.perf_counter()
+    plan = scenario.optimize()
+    log(f"[bucketed] optimize {time.perf_counter() - t0:.2f} s: "
+        f"{plan.describe()}")
+    if not (plan.feasible and plan.q_dim == BUCKET
+            and len(set(plan.sn)) == 1 and plan.s0 is not None):
+        raise AssertionError(f"want a feasible Plan with q_dim={BUCKET} and "
+                             f"one quantizer: {plan}")
+    rounds = min(plan.K0, rounds)
+    scenario.run(plan, task=task, max_rounds=2, device=dev)   # warm-up
+    reset_launches()
+    plain, undo = count_plain_calls()
+    try:
+        report = scenario.run(plan, task=task, max_rounds=rounds, device=dev)
+    finally:
+        undo()
+    launches = read_launches()
+    log(report.summary())
+    ms_round = report.wall_time_s / report.rounds * 1e3
+    log(f"[bucketed] {report.rounds} rounds, {ms_round:.3f} ms/round, "
+        f"test_acc {report.final_metrics['test_acc']:.4f}, launches "
+        f"{launches}, plain versions {plain}")
+    want = expected_launches(qsgd_sumsq=2 * rounds, qsgd_quantize=2 * rounds,
+                             qsgd_dequant_apply_bucketed=rounds)
+    on_card = dev.type == "cuda"
+    if on_card and (launches != want or any(plain.values())):
+        raise AssertionError(f"launches {launches} != expected {want}, or a "
+                             f"plain version ran: {plain}")
+    want_bits = report.rounds * (float(np.sum(system.M_sn)) + system.M_s0)
+    whole = EdgeSystem.paper_sec_vii(dim=task.dim)
+    if report.comm_bits != want_bits or \
+            want_bits == report.rounds * (float(np.sum(whole.M_sn))
+                                          + whole.M_s0):
+        raise AssertionError(f"comm bits {report.comm_bits} != rounds * "
+                             f"(sum M_sn + M_s0) = {want_bits} at the "
+                             f"bucketed pricing")
+    x0 = flatten_like(task.init_params(
+        torch.Generator(device=dev).manual_seed(0)))
+    loss0 = task.metrics(x0)["eval_loss"]
+    m = report.final_metrics
+    if not (np.isfinite(m["eval_loss"]) and m["eval_loss"] < loss0
+            and (rounds < 100 or m["test_acc"] > 0.2)):
+        raise AssertionError(f"the run did not learn: {m}, initial eval "
+                             f"loss {loss0}")
+    log(f"[bucketed] eval loss {loss0:.4f} -> {m['eval_loss']:.4f}; "
+        f"comm bits {report.comm_bits:.6g} = rounds x (sum M_sn "
+        f"+ M_s0) at {system.M_s0:.6g} bits a message ({whole.M_s0:.6g} "
+        f"unbucketed)")
+
+    cfg = plan.to_genqsgd_config(max_K0=1)
+    cpu_task = task if dev.type == "cpu" else MNISTTask(device="cpu")
+    algs = {"dev": GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                           cfg),
+            "cpu": GenQSGD(cpu_task.loss, cpu_task.make_data(plan.N),
+                           cpu_task.shapes, cfg)}
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    x0 = flatten_like(cpu_task.init_params(gen))
+    D = x0.shape[0]
+    idx = torch.randint(0, algs["cpu"].n_local, (plan.N, plan.K_max, plan.B),
+                        generator=gen)
+    uw, us = torch.rand(plan.N, D, generator=gen), torch.rand(D, generator=gen)
+    gamma = plan.gamma
+    draws = tuple(t.to(dev) for t in (idx, uw, us))
+    x_cpu, m_cpu = algs["cpu"].round(x0, idx, uw, us, gamma)
+    x_dev, _ = algs["dev"].round(x0.to(dev), *draws, gamma)
+    diff = (x_dev.cpu() - x_cpu).abs()
+    # a bucket's server level gamma * norm_b / s0 is at most the whole
+    # delta's
+    level = gamma * float(m_cpu["delta_norm"]) / plan.s0
+    if float(diff.max()) > 2 * level + 1e-6 or \
+            int((diff > 1e-6).sum()) > D // 1000:
+        raise AssertionError(f"device round differs from the CPU round: max "
+                             f"{float(diff.max()):.3g} (level {level:.3g}), "
+                             f"{int((diff > 1e-6).sum())} coordinates")
+    log(f"[bucketed] one round device vs CPU: max abs diff "
+        f"{float(diff.max()):.3g} (server level {level:.3g})")
+    if profile:
+        # the host varies between phases by as much as bucketing could
+        # cost: time the bucketed and the whole-message round in turns
+        whole_alg = GenQSGD(task.loss, task.make_data(plan.N), task.shapes,
+                            dataclasses.replace(cfg, bucket=None))
+        paired_rounds({"bucketed": algs["dev"], "whole": whole_alg}, x_dev,
+                      draws, gamma)
+        profile_rounds(algs["dev"], x_dev, draws, gamma)
+    return {"launches": launches, "ms_round": ms_round}
+
+
+def paired_rounds(algs: dict, x, draws, gamma, pairs: int = 6,
+                  rounds: int = 40) -> dict:
+    """ms per round of each of two round functions on the same draws,
+    timed in turns (a, b, b, a, ...) in blocks of ``rounds`` rounds that
+    each end in a synchronize; -> the per-block times of each."""
+    import torch
+    names = list(algs)
+    out = {n: [] for n in names}
+    for alg in algs.values():                     # warm-up
+        alg.round(x, *draws, gamma)
+    torch.cuda.synchronize()
+    for p in range(pairs):
+        for n in (names if p % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            xx = x
+            for _ in range(rounds):
+                xx, _ = algs[n].round(xx, *draws, gamma)
+            torch.cuda.synchronize()
+            out[n].append((time.perf_counter() - t0) / rounds * 1e3)
+    a, b = names
+    wins = sum(ta < tb for ta, tb in zip(out[a], out[b]))
+    log(f"[paired] {pairs} pairs of {rounds} rounds in turns: {a} median "
+        f"{statistics.median(out[a]):.3f} ms/round ({', '.join(f'{t:.3f}' for t in out[a])}), "
+        f"{b} median {statistics.median(out[b]):.3f} "
+        f"({', '.join(f'{t:.3f}' for t in out[b])}); {a} faster in "
+        f"{wins} of {pairs}")
+    return out
+
+
+def phase_payload_buckets(deltas) -> dict:
+    """Phase 6, continued: bucket 4096 on the int4, int8 and packed wires
+    over the 10 worker deltas and the 1-D messages of PAYLOAD_NS, and wire
+    "elias" at s in {7, 127}, unbucketed and bucketed, over the deltas and
+    ELIAS_NS: ``encode_payload`` on the device, then ``decode_payload``,
+    with the counters read around them; each payload held against the
+    plain versions (the norms within rtol 1e-6, the bytes or words
+    identical given the kernels' norms, elias streams decoded by the host's
+    plain walk) and against ``decode(*encode(y, u))``."""
+    import torch
+    from repro_torch.compress import backends as B
+    from repro_torch.compress import elias as E
+    from repro_torch.compress import make_codec
+    from repro_torch.compress.wire import level_bits, pack_int4, unpack_int4
+    from repro_torch.kernels import elias as KE
+    from repro_torch.kernels import qsgd as K
+
+    dev = deltas.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    msgs = [("10 worker deltas", deltas)] + [
+        (f"n={n}", torch.randn(n, generator=gen, device=dev) * 3.0)
+        for n in sorted(set(PAYLOAD_NS) | set(ELIAS_NS))]
+    cases = []
+    want = expected_launches()
+    for wire, s, q in (("int4", 7, BUCKET), ("int8", 127, BUCKET),
+                       ("packed", 127, BUCKET), ("elias", 7, None),
+                       ("elias", 127, None), ("elias", 7, BUCKET),
+                       ("elias", 127, BUCKET)):
+        codec = make_codec(s, wire=wire, bucket=q, backend="cuda")
+        for name, y in msgs:
+            n = y.shape[-1]
+            if wire == "elias" and name != msgs[0][0] and n not in ELIAS_NS:
+                continue
+            u = torch.rand(y.shape, generator=gen, device=dev)
+            cases.append((wire, s, q, codec, name, y, u))
+            rows = y.numel() // n * (1 if q is None else -(-n // q))
+            chunks = len(K.row_chunks(rows))
+            if wire == "int4":
+                want["fused_encode"] += chunks
+            else:
+                want["qsgd_sumsq"] += chunks
+                want["qsgd_quantize"] += chunks
+            if wire == "elias":
+                want["elias_decode"] += 1
+    reset_launches()
+    out = []
+    for wire, s, q, codec, name, y, u in cases:
+        payload, norm, nbits = codec.encode_payload(y, u)
+        out.append((payload, norm, nbits,
+                    codec.decode_payload(payload, norm, y.shape[-1])))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"bucketed and elias payload launches "
+                             f"{launches} != expected {want}")
+    log(f"[payload] {len(cases)} bucketed and elias payloads, launches "
+        f"{launches}")
+
+    for (wire, s, q, codec, name, y, u), (payload, norm, nbits, dec) \
+            in zip(cases, out):
+        n = y.shape[-1]
+        lvl_e, norm_e = codec.encode(y, u)
+        # the plain versions on the same rows: bucket rows (or whole
+        # messages) through K1's and K2's plain versions given the
+        # kernels' norms
+        qq = n if q is None else q
+        yb, ub = (B.to_buckets(t, qq).reshape(-1, qq) for t in (y, u))
+        nrm = norm.reshape(-1)
+        torch.testing.assert_close(nrm, K.sumsq_plain(yb, s)[1], rtol=1e-6,
+                                   atol=0)
+        flat = payload_given_norm(yb, ub, s, nrm, False) \
+            .reshape(*y.shape[:-1], -1)[..., :n]
+        if wire == "int4":
+            lvl, ok = unpack_int4(payload, n), torch.equal(payload,
+                                                           pack_int4(flat))
+            bits = 8 * payload.numel()
+        elif wire == "elias":
+            lvl = KE.elias_decode_plain(payload.cpu(), n).to(dev)
+            words, stream = E.encode_levels(flat.to(torch.int8))
+            ok = torch.equal(payload, words)
+            bits = int(stream.sum())
+        else:
+            lvl, ok = payload, torch.equal(payload, flat)
+            bits = int(level_bits(s, wire) * payload.numel())
+        if not ok or int(nbits) != bits:
+            raise AssertionError(f"{wire} s={s} bucket={q} {name}: payload "
+                                 f"differs from the plain versions' given the "
+                                 f"kernels' norms (nbits {nbits}, {bits})")
+        if not (torch.equal(norm, norm_e) and torch.equal(
+                lvl.to(torch.int32), lvl_e.to(torch.int32))
+                and torch.equal(dec, codec.decode(lvl_e, norm_e))):
+            raise AssertionError(f"{wire} s={s} bucket={q} {name}: differs "
+                                 f"from decode(*encode(y, u))")
+        if dec.shape != y.shape or not bool(torch.isfinite(dec).all()):
+            raise AssertionError(f"{wire} {name}: bad decode "
+                                 f"{tuple(dec.shape)}")
+        log(f"[payload] {wire} s={s} bucket={q} {name}: {tuple(norm.shape)} "
+            f"norms, nbits={int(nbits)}, equal to the plain versions and to "
+            f"decode(*encode)")
     return {"launches": launches}
 
 
@@ -1690,12 +2216,17 @@ def main() -> int:
 
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels)
+    bkern = timed("bucket_kernels", phase_bucket_kernels, "cuda")
+    elias = timed("elias", phase_elias_kernel, "cuda")
     fused = timed("fused", phase_fused_kernels, "cuda")
     path = timed("main", phase_main_path)
+    bucketed = timed("bucketed", phase_bucketed, path["task"],
+                     path["consts"])
     samp = timed("sampled", phase_sampled_faults, path["task"],
                  path["consts"])
     wavg = timed("gqfedwavg", phase_gqfedwavg, path["task"], path["consts"])
     pay = timed("payload", phase_payload, wavg["deltas"])
+    pay_b = timed("payload_buckets", phase_payload_buckets, wavg["deltas"])
     k6 = timed("flash_decode", phase_flash_decode, "cuda")
     from repro_torch.models.registry import get_config
     cfg = get_config(SERVE_ARCH)
@@ -1706,15 +2237,22 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     # launches: each kernel's count on the path that carries it (K1-K3 the
-    # quickstart run, K4/K5 the payload path, K6 the serving run), all five
-    # paths beside it
-    by_path = {"genqsgd": path["launches"], "sampled": samp["launches"],
-               "gqfedwavg": wavg["launches"],
-               "payload": pay["launches"], "serve": serve["launches"]}
+    # quickstart run, K3b the bucketed quickstart, K4/K5 the payload path,
+    # elias_decode the bucketed and elias payloads, K6 the serving run),
+    # every path beside it
+    by_path = {"genqsgd": path["launches"], "bucketed": bucketed["launches"],
+               "sampled": samp["launches"], "gqfedwavg": wavg["launches"],
+               "payload": pay["launches"],
+               "payload_buckets": pay_b["launches"],
+               "serve": serve["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
-            "flash_decode": "serve"}
-    timed = {**kern["main"], **fused["main"], **k6["main"]}
-    worst = {**kern["worst"], **fused["worst"], **k6["worst"]}
+            "flash_decode": "serve",
+            "qsgd_dequant_apply_bucketed": "bucketed",
+            "elias_decode": "payload_buckets"}
+    timed = {**kern["main"], **fused["main"], **k6["main"],
+             **bkern["main"], **elias["main"]}
+    worst = {**kern["worst"], **fused["worst"], **k6["worst"],
+             **bkern["worst"], **elias["worst"]}
     kernels = []
     for name, (ms, plain, lib, (bnd, by)) in timed.items():
         kernels.append({
@@ -1725,6 +2263,8 @@ def main() -> int:
             "max_abs_err": worst[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib})
+        if name == "elias_decode":     # a sequential walk: no card version
+            kernels[-1]["plain_on"] = "host"
     log(f"[done] {time.perf_counter() - t_all:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     print(smi)

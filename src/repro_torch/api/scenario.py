@@ -12,9 +12,10 @@ The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
 ``pr``, ``gqfedwavg`` and registered variants), every participation model
 (``full``, ``uniform``, ``importance``) and fault model (``none``,
 ``edge``), the scalar NumPy solver and the reference runtime, and writes
-the drift ledger of each run when :mod:`repro_torch.obs` is on; the rest
-of the JAX package's Scenario (per-bucket norms, sweeps, the batched and
-fused solvers, PlanServer, the SPMD runtime) raises
+the drift ledger of each run when :mod:`repro_torch.obs` is on, on a
+system with or without per-bucket norms (``q_dim``); the rest of the JAX
+package's Scenario (sweeps, the batched and fused solvers, PlanServer, the
+SPMD runtime) raises
 :class:`NotImplementedError` naming its item in ROADMAP.md.
 """
 from __future__ import annotations
@@ -63,8 +64,6 @@ class Scenario:
 
     def __post_init__(self):
         resolve(self.family)              # unknown names fail here, loudly
-        if self.system.q_dim is not None:
-            raise not_ported("per-bucket-norm quantization (q_dim)", 2)
         self.sampling_obj.validate(self.system.N)
         self.faults_obj.validate(self.system.N)
         if self.consts.N != self.system.N:

@@ -10,7 +10,9 @@ quantizer ``Q(·; s)``:
 
 Instances:
   :class:`QSGDCodec`     — the paper's Assumption-1 quantizer, one norm per
-                           message; backend "torch" (reference math) or
+                           message or, with ``bucket``, one per bucket of
+                           its coordinates (matching the cost layer's
+                           ``q_dim``); backend "torch" (reference math) or
                            "cuda" (the hand-written kernels; plain versions
                            on CPU tensors).
   :class:`RotatedQSGDCodec` — QSGD on the randomized-Hadamard rotated,
@@ -18,15 +20,16 @@ Instances:
                            quantizer).
   :class:`IdentityCodec` — s = ∞: exact passthrough, q_s = 0, recovering
                            PM-SGD / FedAvg / PR-SGD as special cases.
+  :class:`ErrorFeedbackCodec` — memory-compensated quantization around any
+                           of the above, its residual threaded through by
+                           the caller.
 
 Every codec also has the one-pass payload pipeline ``encode_payload`` /
 ``decode_payload``: straight from the message to the bytes of its wire
-(the fused kernels K4/K5 for "int4" on the "cuda" backend).
+(the fused kernels K4/K5 for "int4" on the "cuda" backend, the Elias-omega
+coder of :mod:`repro_torch.compress.elias` for "elias").
 
 ``make_codec`` is the single constructor the rest of the package uses.
-The error-feedback codec and per-bucket norms are not ported yet
-(ROADMAP.md, Queue 1, item 2), nor is the Elias coder of the "elias"
-payload (item 9).
 """
 from __future__ import annotations
 
@@ -37,14 +40,14 @@ from typing import Optional
 
 import torch
 
-from .. import not_ported
 from . import backends as B
+from . import elias as E
 from . import rotation as R
 from . import wire as W
 
 __all__ = ["Codec", "QSGDCodec", "IdentityCodec", "RotatedQSGDCodec",
-           "CODEC_BACKENDS", "CODEC_KINDS", "make_codec", "variance_bound",
-           "bits_per_message", "q_pair"]
+           "ErrorFeedbackCodec", "CODEC_BACKENDS", "CODEC_KINDS",
+           "make_codec", "variance_bound", "bits_per_message", "q_pair"]
 
 #: "torch" = reference math, "cuda" = the QSGD kernels
 CODEC_BACKENDS = ("torch", "cuda")
@@ -122,11 +125,15 @@ class Codec:
           wire "int4"  — packed nibble bytes, (..., ceil(m/2)) for messages
                          of m coordinates (the fused kernels on the "cuda"
                          backend);
-          wire "elias" — not ported yet (ROADMAP.md, Queue 1, item 9);
+          wire "elias" — Elias-omega coded words, (..., word_capacity(m))
+                         int32, one stream a message; s <= 127 (the coder
+                         reads int8 levels);
           otherwise    — the levels themselves in their wire container.
 
         ``nbits`` is the payload's size on the wire (container bits,
-        excluding the 32-bit norm words).  ``decode_payload`` is the exact
+        excluding the 32-bit norm words): an int, or for "elias" the
+        realized streams' total as an int64 tensor on the payload's device
+        (nothing waits on the host).  ``decode_payload`` is the exact
         inverse back to the dequantized tensor.
         """
         raise NotImplementedError
@@ -182,16 +189,23 @@ class QSGDCodec(Codec):
     Attributes:
       s_levels: quantization parameter s (>= 1).
       wire: pricing format (see :mod:`repro_torch.compress.wire`).
+      bucket: per-bucket-norm quantization — each message is split into
+        buckets of this many coordinates, each normalized by its own L2
+        norm (Assumption 1 then holds per bucket with D = bucket); norms
+        come out (..., n_buckets).  ``None`` = one norm per message.
       backend: "torch" reference math or "cuda" kernels; levels are int8
         for s <= 127 and int32 above, on both.
     """
 
     s_levels: int = 1
+    bucket: Optional[int] = None
     backend: str = "torch"
 
     def __post_init__(self):
         if self.s_levels <= 0:
             raise ValueError(f"s must be positive, got {self.s_levels}")
+        if self.bucket is not None and self.bucket < 1:
+            raise ValueError(f"bucket must be positive, got {self.bucket}")
         cap = W.wire_max_s(self.wire)
         if cap is not None and self.s_levels > cap:
             raise ValueError(f"wire {self.wire!r} carries s <= {cap}, "
@@ -210,7 +224,14 @@ class QSGDCodec(Codec):
 
     # -- encode / decode -------------------------------------------------
     def encode(self, y: torch.Tensor, u: torch.Tensor):
-        """-> (levels shaped like y, norm per message)."""
+        """-> (levels shaped like y, norm per message — or (...,
+        n_buckets) norms with ``bucket``)."""
+        if self.bucket is not None:
+            if self.backend == "cuda":
+                return B.encode_bucketed_cuda(y, self.s_levels, u,
+                                              self.bucket)
+            lvl, norms = B.encode_bucketed(y, self.s_levels, u, self.bucket)
+            return lvl.to(self.level_dtype), norms
         if self.backend == "cuda":
             return B.encode_cuda(y, self.s_levels, u)
         lvl, norm = B.encode(y, self.s_levels, u)
@@ -218,42 +239,57 @@ class QSGDCodec(Codec):
 
     def decode(self, levels: torch.Tensor, norm: torch.Tensor,
                dtype=torch.float32):
+        if self.bucket is not None:
+            return B.decode_bucketed(levels, norm, self.s_levels, dtype,
+                                     self.bucket)
         return B.decode(levels, norm, self.s_levels, dtype)
 
     def decode_apply(self, x: torch.Tensor, levels: torch.Tensor,
                      norm: torch.Tensor, gamma) -> torch.Tensor:
-        """x + gamma * decode(levels) — the fused K3 on the cuda backend."""
+        """x + gamma * decode(levels) — the fused K3 (K3b with buckets) on
+        the cuda backend."""
         if self.backend == "cuda":
+            if self.bucket is not None:
+                return B.decode_apply_bucketed_cuda(x, levels, norm,
+                                                    self.s_levels, gamma,
+                                                    self.bucket)
             return B.decode_apply_cuda(x, levels, norm, self.s_levels, gamma)
         upd = gamma * self.decode(levels, norm)
         return (x.to(torch.float32) + upd).to(x.dtype)
 
     # -- the one-pass encode pipeline ------------------------------------
     def _payload(self, lvl: torch.Tensor, norm: torch.Tensor):
-        """(payload, norm, nbits) of levels already in their container."""
-        return lvl, norm, int(W.level_bits(self.s_levels, self.wire)
-                              * lvl.numel())
-
-    def _check_payload_wire(self):
-        if self.wire == "elias":
-            raise not_ported("the Elias-omega payload coder (wire 'elias')",
-                             9)
+        """(payload, norm, nbits) of levels on a wire that carries levels:
+        the Elias-omega streams of "elias", else the levels in their
+        container."""
+        if self.wire != "elias":
+            return lvl, norm, int(W.level_bits(self.s_levels, self.wire)
+                                  * lvl.numel())
+        if self.s_levels > E.MAX_RUNTIME_S:
+            raise ValueError(f"the elias coder reads levels from an int8 "
+                             f"container (s <= {E.MAX_RUNTIME_S}), got "
+                             f"s={self.s_levels}")
+        words, nbits = E.encode_levels(lvl.to(torch.int8))
+        return words, norm, nbits.to(torch.int64).sum()
 
     def encode_payload(self, y: torch.Tensor, u: torch.Tensor):
-        self._check_payload_wire()
         if self.wire != "int4":
             return self._payload(*self.encode(y, u))
-        if self.backend == "cuda":
-            packed, norm = B.encode_fused(y, self.s_levels, u, pack=True)
+        if self.backend != "cuda":       # the reference: encode, then pack
+            lvl, norm = self.encode(y, u)
+            packed = W.pack_int4(lvl)
+        elif self.bucket is not None:
+            packed, norm = B.encode_fused_bucketed(y, self.s_levels, u,
+                                                   self.bucket, pack=True)
         else:
-            packed, norm = B.encode_fused_torch(y, self.s_levels, u,
-                                                pack=True)
+            packed, norm = B.encode_fused(y, self.s_levels, u, pack=True)
         return packed, norm, 8 * packed.numel()
 
     def _payload_levels(self, payload: torch.Tensor, n: int):
-        self._check_payload_wire()
         if self.wire == "int4":
             return W.unpack_int4(payload, n)
+        if self.wire == "elias":
+            return E.decode_levels(payload, n)
         return payload[..., :n]
 
     def decode_payload(self, payload: torch.Tensor, norm: torch.Tensor,
@@ -262,10 +298,12 @@ class QSGDCodec(Codec):
 
     # -- cost-layer views ------------------------------------------------
     def wire_bits(self, dim: int) -> float:
-        return W.wire_bits(self.s_levels, dim, wire=self.wire)
+        return W.wire_bits(self.s_levels, dim, wire=self.wire,
+                           bucket=self.bucket)
 
     def variance_bound(self, dim: int) -> float:
-        return variance_bound(self.s_levels, dim)
+        eff = dim if self.bucket is None else min(self.bucket, dim)
+        return variance_bound(self.s_levels, eff)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,6 +330,13 @@ class RotatedQSGDCodec(QSGDCodec):
     """
 
     seed: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.bucket is not None:
+            raise ValueError("rotation preconditioning and per-bucket norms "
+                             "are mutually exclusive (the rotation already "
+                             "isotropizes the message)")
 
     def padded_dim(self, dim: int) -> int:
         return R.next_pow2(dim)
@@ -321,7 +366,6 @@ class RotatedQSGDCodec(QSGDCodec):
         """Same contract as the base, on the *rotated padded* message: K5
         folds the rotation into the quantize pass (K4 after a separate
         rotation above 2^15 coordinates)."""
-        self._check_payload_wire()
         if self.wire != "int4":
             return self._payload(*self.encode(y, u))
         if self.backend == "cuda":
@@ -343,13 +387,82 @@ class RotatedQSGDCodec(QSGDCodec):
         return variance_bound(self.s_levels, self.padded_dim(dim))
 
 
+@dataclasses.dataclass(frozen=True)
+class ErrorFeedbackCodec:
+    """Memory-compensated (EF-)quantization around any inner codec.
+
+    Encodes the *error-compensated* message ``y + e`` and carries the new
+    residual ``e' = (y + e) - decode(encode(y + e))`` as explicit state —
+    codecs stay frozen/stateless, so the caller threads ``state`` through
+    (``init_state`` → ``encode``/``quantize_dequantize`` → next round).  The
+    telescoping identity ``sum_t decode_t = sum_t y_t + e_0 - e_T`` makes
+    the *cumulative* applied update track the true sum to within one
+    residual.  ``state`` is the flat residual of the whole input.
+
+    EF-compensated quantization is **biased** per message: Assumption 1's
+    unbiasedness fails, so Theorem 1 (and every family's convergence
+    block) does not cover it, and ``variance_bound`` raises to keep the
+    optimizer from pricing ``q_s`` for it.  It is for the runtime, not for
+    ``Scenario.optimize``.
+    """
+
+    inner: Codec
+
+    @property
+    def s(self) -> Optional[int]:
+        return self.inner.s
+
+    @property
+    def wire(self) -> str:
+        return self.inner.wire
+
+    def init_state(self, dim: int, device="cuda") -> torch.Tensor:
+        """The zero residual memory: an f32 vector of the message
+        dimension on ``device`` (the card unless the caller asks for the
+        CPU)."""
+        from .. import resolve_device
+        return torch.zeros(int(dim), dtype=torch.float32,
+                           device=resolve_device(device))
+
+    def encode(self, y: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+        """-> (levels, norm, new_state); ``state`` is the flat residual."""
+        comp = y.to(torch.float32) + state.reshape(y.shape)
+        lvl, norm = self.inner.encode(comp, u)
+        # a rotated inner decodes to the padded message: cut it to comp's
+        sent = self.inner.decode(lvl, norm)[..., :comp.shape[-1]]
+        return lvl, norm, (comp - sent).reshape(-1)
+
+    def decode(self, levels: torch.Tensor, norm: torch.Tensor,
+               dtype=torch.float32):
+        return self.inner.decode(levels, norm, dtype)
+
+    def quantize_dequantize(self, y: torch.Tensor, u: torch.Tensor,
+                            state: torch.Tensor):
+        """-> (value, new_state): the stateful twin of the codec method,
+        with the uniform noise ``u`` passed in (of the inner codec's
+        ``padded_dim``)."""
+        comp = y.to(torch.float32) + state.reshape(y.shape)
+        sent = self.inner.quantize_dequantize(comp, u)
+        return sent, (comp - sent).reshape(-1)
+
+    def wire_bits(self, dim: int) -> float:
+        return self.inner.wire_bits(dim)
+
+    def variance_bound(self, dim: int) -> float:
+        raise TypeError(
+            "error-feedback quantization is biased: Assumption 1's q_s does "
+            "not exist, so no family's convergence block may price it — run "
+            "it in the runtime, keep the optimizer on the inner codec")
+
+
 @functools.lru_cache(maxsize=1024)
 def make_codec(s: Optional[int], wire: str = "packed",
                bucket: Optional[int] = None, backend: str = "torch",
                kind: str = "qsgd", seed: int = 0) -> Codec:
-    """The one constructor: s=None -> IdentityCodec, else QSGDCodec (or the
-    rotation-preconditioned variant for ``kind="rotated"``, whose signs
-    come from ``seed``).
+    """The one constructor: s=None -> IdentityCodec, else QSGDCodec (with
+    per-bucket norms for ``bucket``), or the rotation-preconditioned
+    variant for ``kind="rotated"``, whose signs come from ``seed`` (a
+    bucket there raises: the two are mutually exclusive).
 
     Codecs are frozen/stateless, so instances are memoized — the cost layer
     reconstructs them inside the GIA inner loop and must not pay object
@@ -358,11 +471,10 @@ def make_codec(s: Optional[int], wire: str = "packed",
     if kind not in CODEC_KINDS:
         raise ValueError(f"unknown codec kind {kind!r}; "
                          f"expected one of {CODEC_KINDS}")
-    if bucket is not None:
-        raise not_ported("per-bucket-norm quantization (bucket / q_dim)", 2)
     if s is None:
         return IdentityCodec(wire=wire)
     if kind == "rotated":
-        return RotatedQSGDCodec(wire=wire, s_levels=int(s), backend=backend,
-                                seed=int(seed))
-    return QSGDCodec(wire=wire, s_levels=int(s), backend=backend)
+        return RotatedQSGDCodec(wire=wire, s_levels=int(s), bucket=bucket,
+                                backend=backend, seed=int(seed))
+    return QSGDCodec(wire=wire, s_levels=int(s), bucket=bucket,
+                     backend=backend)

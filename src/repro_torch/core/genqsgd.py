@@ -26,6 +26,12 @@ model delta:
   * every node recovers x̂^{(k0+1)} = x̂^{(k0)} + γ^{(k0)} Q(Δx̂; s_0)   (3)
     — the fused dequantize + apply (K3).
 
+With per-bucket norms (``bucket``, the Plan's ``q_dim``) every message is
+quantized in buckets of that many coordinates: K1/K2 run on the
+(N * n_buckets, bucket) rows of the worker uploads and the (n_buckets,
+bucket) rows of the server's message, and the apply is K3b, one norm per
+bucket.
+
 The family hooks of the JAX package ride on the same round: weighted
 aggregation ``Δx̂ = Σ_n w_n Q(Δ_n)`` (``agg_weights``), GQFedWAvg's
 normalized-momentum local update (``momentum``/``normalize``) and the
@@ -51,7 +57,6 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..compress import make_codec
 from ..data.federated import sample_indices
 from ..families import check_agg_weights, check_momentum
@@ -93,8 +98,9 @@ class GenQSGDConfig:
     quantizer preconditioner; ``sampling_S``/``sampling_p`` draw a seeded
     cohort each round and ``faults`` (a
     :class:`~repro_torch.faults.FaultSpec`) seeded faults.  The defaults
-    are GenQSGD (Algorithm 1).  Per-bucket norms raise (ROADMAP.md,
-    Queue 1, item 2).
+    are GenQSGD (Algorithm 1).  ``bucket`` gives every quantizer one norm
+    per bucket of that many coordinates (QSGD bucketing, the Plan's
+    ``q_dim``).
     """
     K0: int                      # global iterations
     Kn: Tuple[int, ...]          # per-worker local iterations (len N)
@@ -113,8 +119,6 @@ class GenQSGDConfig:
     faults: Optional[object] = None  # FaultSpec (None = no faults)
 
     def __post_init__(self):
-        if self.bucket is not None:
-            raise not_ported("per-bucket-norm quantization", 2)
         if self.agg_weights is not None:
             object.__setattr__(self, "agg_weights",
                                check_agg_weights(self.agg_weights,
@@ -185,10 +189,12 @@ class GenQSGD:
         self.dim = sum(int(np.prod(s)) for s in self.shapes.values())
         self._kn = torch.as_tensor(config.Kn, device=self.device)
         self._rows = torch.arange(config.N, device=self.device)[:, None]
-        kind = config.codec_kind
-        self.worker_codecs = [make_codec(s, backend="cuda", kind=kind)
+        kind, q = config.codec_kind, config.bucket
+        self.worker_codecs = [make_codec(s, bucket=q, backend="cuda",
+                                         kind=kind)
                               for s in config.worker_s()]
-        self.server_codec = make_codec(config.s0, backend="cuda", kind=kind)
+        self.server_codec = make_codec(config.s0, bucket=q, backend="cuda",
+                                       kind=kind)
         #: length of a quantized message (the rotated codec pads to 2^k)
         self.msg_dim = max(c.padded_dim(self.dim)
                            for c in self.worker_codecs + [self.server_codec])

@@ -8,6 +8,11 @@
 //   K1 qsgd_sumsq          <- _sumsq_kernel / sumsq_kernel_call
 //   K2 qsgd_quantize       <- _quantize_kernel / quantize_kernel_call
 //   K3 qsgd_dequant_apply  <- _dequant_apply_kernel / dequant_apply_kernel_call
+// and K3b qsgd_dequant_apply_bucketed, K3 with one norm per bucket of q
+// coordinates (QSGD bucketing), which replaces no TPU kernel: the JAX
+// package's Pallas backend refuses buckets, and its reference runtime
+// decodes the bucket rows in jnp (compress/backends.py decode_bucketed)
+// before the update.
 //
 // All three are streaming passes: one read of each input, one write of each
 // output, a few flops per element, so device memory bandwidth bounds them at
@@ -160,6 +165,109 @@ dequant_apply_kernel(const float* __restrict__ x, const T* __restrict__ lvl,
   if (end >= 0) out[end] = apply1(ev.x, ev.y, gamma, late_scale(nrm, s));
 }
 
+// K3b's walk over buckets of q elements: the bucket b and the offset r in
+// it of a thread's current element, advanced by the thread's fixed step
+// with no division (the two 64-bit divisions happen once, at the start).
+struct BucketWalk {
+  long long q, b, r, db, dr;
+  __device__ __forceinline__ BucketWalk(long long e, long long q_,
+                                        long long step)
+      : q(q_) {
+    b = e / q;
+    r = e - b * q;
+    db = step / q;
+    dr = step - db * q;
+  }
+  __device__ __forceinline__ void next() {
+    b += db;
+    r += dr;
+    if (r >= q) {
+      r -= q;
+      ++b;
+    }
+  }
+};
+
+// The scales norm[bucket] / s of the four elements at w's position, of
+// which the first m exist: one norm and one division where they share a
+// bucket, else one each (an item straddles a bucket edge when q is not a
+// multiple of 4 or x's head peel shifts the items).
+__device__ __forceinline__ void bucket_scales(const float* __restrict__ norm,
+                                              float s, const BucketWalk& w,
+                                              long long m, float sc[4]) {
+  if (w.r + 3 < w.q) {
+    const float v = late_scale(norm[w.b], s);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sc[k] = v;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    long long b = w.b, r = w.r + k;
+    while (r >= w.q) {
+      r -= w.q;
+      ++b;
+    }
+    sc[k] = k < m ? late_scale(norm[b], s) : 0.f;
+  }
+}
+
+// K3b: out[i] = x[i] + (gamma * lvl[i]) * (norm[i / q] / s), K3's thread
+// map, branches and operation order with the scale taken per bucket, so it
+// is bitwise its plain version and, at q >= n, K3's bytes.  One more load
+// an item (its bucket's norm, 4 bytes a bucket, from L1/L2).
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads)
+dequant_apply_bucketed_kernel(const float* __restrict__ x,
+                              const T* __restrict__ lvl,
+                              const float* __restrict__ norm, float s,
+                              float gamma, long long n, long long q,
+                              float* __restrict__ out) {
+  using V = typename Lvl4<T>::V;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = (long long)(((16u - ((uintptr_t)x & 15u)) & 15u) >> 2);
+  if (head > n) head = n;
+  const bool vec = ((uintptr_t)(out + head) & 15u) == 0 &&
+                   ((uintptr_t)(lvl + head) & (sizeof(V) - 1)) == 0;
+  float sc[4];
+  if (!vec) {
+    BucketWalk w(4 * tid, q, 4 * stride);
+    for (long long i = 4 * tid; i < n; i += 4 * stride, w.next()) {
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < n) v[k] = make_float2(x[i + k], (float)lvl[i + k]);
+      bucket_scales(norm, s, w, n - i, sc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < n) out[i + k] = apply1(v[k].x, v[k].y, gamma, sc[k]);
+    }
+    return;
+  }
+  const long long nvec = (n - head) >> 2;
+  const long long end =
+      tid < head ? tid
+                 : (tid - head < ((n - head) & 3) ? (nvec << 2) + tid : -1);
+  float2 ev;
+  if (end >= 0) ev = make_float2(x[end], (float)lvl[end]);
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  const V* lv = reinterpret_cast<const V*>(lvl + head);
+  float4* ov = reinterpret_cast<float4*>(out + head);
+  BucketWalk w(head + 4 * tid, q, 4 * stride);
+  for (long long i = tid; i < nvec; i += stride, w.next()) {
+    const float4 a = xv[i];
+    const V b = lv[i];
+    bucket_scales(norm, s, w, 4, sc);
+    ov[i] = make_float4(apply1(a.x, (float)b.x, gamma, sc[0]),
+                        apply1(a.y, (float)b.y, gamma, sc[1]),
+                        apply1(a.z, (float)b.z, gamma, sc[2]),
+                        apply1(a.w, (float)b.w, gamma, sc[3]));
+  }
+  if (end >= 0)
+    out[end] = apply1(ev.x, ev.y, gamma, late_scale(norm[end / q], s));
+}
+
 template <typename T>
 int launch_quantize(const float* y, const float* u, const float* inv,
                     long long rows, long long n, T* out, cudaStream_t st) {
@@ -177,6 +285,18 @@ int launch_dequant_apply(const float* x, const T* lvl, const float* norm,
   const unsigned int grid = grid_x((n + 3) >> 2, kApplyThreads, 0x7FFFFFFFu);
   dequant_apply_kernel<T><<<grid, kApplyThreads, 0, st>>>(x, lvl, norm, s,
                                                           gamma, n, out);
+  return (int)cudaGetLastError();
+}
+
+// K3b's grid: K3's.
+template <typename T>
+int launch_dequant_apply_bucketed(const float* x, const T* lvl,
+                                  const float* norm, float s, float gamma,
+                                  long long n, long long q, float* out,
+                                  cudaStream_t st) {
+  const unsigned int grid = grid_x((n + 3) >> 2, kApplyThreads, 0x7FFFFFFFu);
+  dequant_apply_bucketed_kernel<T><<<grid, kApplyThreads, 0, st>>>(
+      x, lvl, norm, s, gamma, n, q, out);
   return (int)cudaGetLastError();
 }
 
@@ -219,6 +339,23 @@ int qsgd_dequant_apply_i32(const float* x, const int32_t* lvl,
                            const float* norm, float s, float gamma, long long n,
                            float* out, cudaStream_t st) {
   return launch_dequant_apply<int32_t>(x, lvl, norm, s, gamma, n, out, st);
+}
+
+// K3b: x (n,) f32, levels (n,), norm (ceil(n / q),) f32 -> out (n,) f32.
+int qsgd_dequant_apply_bucketed_i8(const float* x, const int8_t* lvl,
+                                   const float* norm, float s, float gamma,
+                                   long long n, long long q, float* out,
+                                   cudaStream_t st) {
+  return launch_dequant_apply_bucketed<int8_t>(x, lvl, norm, s, gamma, n, q,
+                                               out, st);
+}
+
+int qsgd_dequant_apply_bucketed_i32(const float* x, const int32_t* lvl,
+                                    const float* norm, float s, float gamma,
+                                    long long n, long long q, float* out,
+                                    cudaStream_t st) {
+  return launch_dequant_apply_bucketed<int32_t>(x, lvl, norm, s, gamma, n, q,
+                                                out, st);
 }
 
 }  // extern "C"

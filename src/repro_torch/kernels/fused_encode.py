@@ -32,8 +32,10 @@ Plain versions: :func:`fused_encode_plain` is ``sumsq_plain`` +
 ``quantize_plain`` + ``pack_int4``, :func:`fused_rotate_encode_plain` is
 ``rotate`` + the same.  Each wrapper runs its kernel for CUDA tensors and
 the plain version for CPU tensors — only because the tensors lie on the
-CPU; a CUDA tensor never falls back.  ``LAUNCHES`` counts wrapper calls
-that launched their kernel, ``ROUTES`` K4's calls by route.
+CPU; a CUDA tensor never falls back.  ``LAUNCHES`` counts K4's and K5's
+launches (K4 over more than the grid's 65,535 rows, as QSGD bucketing's
+bucket rows can be, launches once per chunk of rows, each on its own
+:func:`k4_route`), ``ROUTES`` K4's launches by route.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from . import build
-from .qsgd import (_aligned, _check, _on_card, quantize_plain,
+from .qsgd import (_aligned, _check, _on_card, quantize_plain, row_chunks,
                    sumsq_blocks, sumsq_plain)
 
 __all__ = ["LAUNCHES", "ROUTES", "reset_launches", "FUSED_ROTATE_MAX_DIM",
@@ -203,27 +205,30 @@ def fused_encode(y: torch.Tensor, u: torch.Tensor, s: int,
                  pack: bool = False):
     """K4: y, u (rows, n) f32 -> (payload, norm): payload (rows, ceil(n/2))
     packed int4 bytes when ``pack``, else (rows, n) int8 levels; norm
-    (rows,) f32.  On the card the route is :func:`k4_route`'s."""
+    (rows,) f32.  On the card each chunk of at most 65,535 rows is one
+    call of the C entry point on :func:`k4_route`'s route."""
     _check_pair(y, u, "fused_encode")
     check_fused_s(int(s), pack)
     if not _on_card(y, u):
         return fused_encode_plain(y, u, s, pack)
     rows, n = y.shape
-    if not 1 <= rows <= _MAX_ROWS or n < 1:
+    if rows < 1 or n < 1:
         raise ValueError(f"fused_encode: bad shape {tuple(y.shape)}")
     P = sumsq_blocks(n)
-    route = k4_route(rows, n, _capacity(y.device))
-    partials = torch.empty(rows * P, dtype=torch.float32, device=y.device)
+    partials = torch.empty(min(rows, _MAX_ROWS) * P, dtype=torch.float32,
+                           device=y.device)
     norm = torch.empty(rows, dtype=torch.float32, device=y.device)
     out = torch.empty((rows, (n + 1) // 2 if pack else n), dtype=torch.int8,
                       device=y.device)
-    build.launch("fused_encode", "fused_encode", _SIGS["fused_encode"],
-                 y.data_ptr(), u.data_ptr(), rows, n, P, float(s), int(pack),
-                 int(route == "one_launch"), partials.data_ptr(),
-                 _k4_scratch(y.device).data_ptr(), norm.data_ptr(),
-                 out.data_ptr())
-    LAUNCHES["fused_encode"] += 1
-    ROUTES[route] += 1
+    for r0, r in row_chunks(rows):     # partials reused: one stream
+        route = k4_route(r, n, _capacity(y.device))
+        build.launch("fused_encode", "fused_encode", _SIGS["fused_encode"],
+                     y[r0].data_ptr(), u[r0].data_ptr(), r, n, P, float(s),
+                     int(pack), int(route == "one_launch"),
+                     partials.data_ptr(), _k4_scratch(y.device).data_ptr(),
+                     norm[r0:].data_ptr(), out[r0].data_ptr())
+        LAUNCHES["fused_encode"] += 1
+        ROUTES[route] += 1
     return out, norm
 
 

@@ -7,6 +7,11 @@
                                  ``quantize_kernel_call``
   K3 :func:`qsgd_dequant_apply`  replaces ``_dequant_apply_kernel`` /
                                  ``dequant_apply_kernel_call``
+  K3b :func:`qsgd_dequant_apply_bucketed`  K3 with one norm per bucket of
+                                 q coordinates; replaces no TPU kernel (the
+                                 JAX package's Pallas backend refuses
+                                 buckets): it is ``decode_bucketed`` then
+                                 the update, ``compress/backends.py``
 
 What bounds them on the card: each is one streaming pass (K1 reads 4n
 bytes, K2 reads 8n and writes n or 4n, K3 reads 4n plus the levels and
@@ -22,6 +27,15 @@ ticket, :func:`_tickets`) adds them in a fixed order; no float atomics.
 Levels are int8 for s <= 127, as on the TPU, and int32 above (the paper's
 s = 2^14).
 
+Per-bucket norms (QSGD bucketing) need no kernel of their own on the
+encode side: K1 and K2 run on the (rows * n_buckets, q) matrix of bucket
+rows.  Where that exceeds the grid's 65,535 rows (q = 8 over ten model
+deltas is 127,220 rows) the wrappers launch once per chunk of rows on the
+current stream, so K1's tickets serve each chunk in turn.  The server's
+apply takes one norm per bucket: K3b, the same one 16-byte item a thread
+as K3, with each item's bucket walked without a division in the loop; an
+item that straddles a bucket edge takes its norm per element.
+
 Each wrapper runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor — only because the tensor lies on the CPU; a CUDA tensor never
 falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
@@ -35,11 +49,14 @@ import torch
 from . import build
 
 __all__ = ["LAUNCHES", "reset_launches", "level_dtype", "sumsq_blocks",
-           "qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply",
-           "sumsq_plain", "quantize_plain", "dequant_apply_plain"]
+           "row_chunks", "qsgd_sumsq", "qsgd_quantize", "qsgd_dequant_apply",
+           "qsgd_dequant_apply_bucketed", "sumsq_plain", "quantize_plain",
+           "dequant_apply_plain", "dequant_apply_bucketed_plain"]
 
-#: kernel launches per wrapper (the plain versions never count)
-LAUNCHES = {"qsgd_sumsq": 0, "qsgd_quantize": 0, "qsgd_dequant_apply": 0}
+#: kernel launches per wrapper (the plain versions never count); a call
+#: over more rows than one grid holds counts one launch per chunk
+LAUNCHES = {"qsgd_sumsq": 0, "qsgd_quantize": 0, "qsgd_dequant_apply": 0,
+            "qsgd_dequant_apply_bucketed": 0}
 
 _THREADS = 256
 _MAX_ROWS = 65535          # grid.y limit
@@ -51,6 +68,10 @@ _SIGS = {
     "qsgd_quantize_i32": [_PTR] * 3 + [_LL] * 2 + [_PTR],
     "qsgd_dequant_apply_i8": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
     "qsgd_dequant_apply_i32": [_PTR] * 3 + [_F32] * 2 + [_LL, _PTR],
+    "qsgd_dequant_apply_bucketed_i8": [_PTR] * 3 + [_F32] * 2
+    + [_LL, _LL, _PTR],
+    "qsgd_dequant_apply_bucketed_i32": [_PTR] * 3 + [_F32] * 2
+    + [_LL, _LL, _PTR],
 }
 
 
@@ -71,6 +92,12 @@ def sumsq_blocks(n: int) -> int:
 
 
 _TICKETS: dict = {}
+
+
+def row_chunks(rows: int):
+    """``(first row, rows)`` of each launch over ``rows`` rows: chunks of at
+    most the grid's 65,535 rows, in order."""
+    return [(r, min(_MAX_ROWS, rows - r)) for r in range(0, rows, _MAX_ROWS)]
 
 
 def _tickets(device: torch.device) -> torch.Tensor:
@@ -147,6 +174,16 @@ def dequant_apply_plain(x: torch.Tensor, lvl: torch.Tensor, norm: torch.Tensor,
     return x + (float(gamma) * lvl.to(torch.float32)) * scale
 
 
+def dequant_apply_bucketed_plain(x: torch.Tensor, lvl: torch.Tensor,
+                                 norms: torch.Tensor, s, gamma: float,
+                                 q: int):
+    """x + (gamma * lvl) * (norms[i // q] / s): K3 with one norm per
+    bucket of ``q`` coordinates."""
+    scale = norms / torch.full_like(norms, float(s))
+    idx = torch.arange(x.shape[0], device=x.device) // int(q)
+    return x + (float(gamma) * lvl.to(torch.float32)) * scale[idx]
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -157,16 +194,19 @@ def qsgd_sumsq(y: torch.Tensor, s):
     if not _on_card(y):
         return sumsq_plain(y, s)
     rows, n = y.shape
-    if not 1 <= rows <= _MAX_ROWS or n < 1:
+    if rows < 1 or n < 1:
         raise ValueError(f"qsgd_sumsq: bad shape {tuple(y.shape)}")
     P = sumsq_blocks(n)
-    partials = torch.empty(rows * P, dtype=torch.float32, device=y.device)
+    partials = torch.empty(min(rows, _MAX_ROWS) * P, dtype=torch.float32,
+                           device=y.device)
     ss, norm, inv = (torch.empty(rows, dtype=torch.float32, device=y.device)
                      for _ in range(3))
-    _launch("qsgd_sumsq", y.data_ptr(), rows, n, P, float(s),
-            partials.data_ptr(), _tickets(y.device).data_ptr(),
-            ss.data_ptr(), norm.data_ptr(), inv.data_ptr())
-    LAUNCHES["qsgd_sumsq"] += 1
+    for r0, r in row_chunks(rows):     # partials reused: one stream
+        _launch("qsgd_sumsq", y[r0].data_ptr(), r, n, P, float(s),
+                partials.data_ptr(), _tickets(y.device).data_ptr(),
+                ss[r0:].data_ptr(), norm[r0:].data_ptr(),
+                inv[r0:].data_ptr())
+        LAUNCHES["qsgd_sumsq"] += 1
     return ss, norm, inv
 
 
@@ -182,14 +222,15 @@ def qsgd_quantize(y: torch.Tensor, u: torch.Tensor, inv: torch.Tensor, s):
     if not _on_card(y, u, inv):
         return quantize_plain(y, u, inv, s)
     rows, n = y.shape
-    if not 1 <= rows <= _MAX_ROWS or n < 1:
+    if rows < 1 or n < 1:
         raise ValueError(f"qsgd_quantize: bad shape {tuple(y.shape)}")
     dt = level_dtype(s)
     out = torch.empty((rows, n), dtype=dt, device=y.device)
     name = "qsgd_quantize_i8" if dt == torch.int8 else "qsgd_quantize_i32"
-    _launch(name, y.data_ptr(), u.data_ptr(), inv.data_ptr(), rows, n,
-            out.data_ptr())
-    LAUNCHES["qsgd_quantize"] += 1
+    for r0, r in row_chunks(rows):
+        _launch(name, y[r0].data_ptr(), u[r0].data_ptr(),
+                inv[r0:].data_ptr(), r, n, out[r0].data_ptr())
+        LAUNCHES["qsgd_quantize"] += 1
     return out
 
 
@@ -215,4 +256,31 @@ def qsgd_dequant_apply(x: torch.Tensor, lvl: torch.Tensor, norm: torch.Tensor,
     _launch(name, x.data_ptr(), lvl.data_ptr(), norm.data_ptr(), float(s),
             float(gamma), n, out.data_ptr())
     LAUNCHES["qsgd_dequant_apply"] += 1
+    return out
+
+
+def qsgd_dequant_apply_bucketed(x: torch.Tensor, lvl: torch.Tensor,
+                                norms: torch.Tensor, s, gamma: float,
+                                q: int):
+    """K3b: x (n,) f32, levels (n,) in ``level_dtype(s)``, norms
+    (ceil(n/q),) f32 -> ``x + (gamma * lvl) * (norms[i // q] / s)`` (n,)
+    f32, out of place.  At q >= n it computes K3's bytes (one bucket)."""
+    _check(x, "qsgd_dequant_apply_bucketed x", torch.float32, 1)
+    _check(lvl, "qsgd_dequant_apply_bucketed lvl", level_dtype(s), 1)
+    _check(norms, "qsgd_dequant_apply_bucketed norms", torch.float32, 1)
+    n, q = x.shape[0], int(q)
+    if q < 1 or lvl.shape != x.shape or norms.shape[0] != -(-n // q):
+        raise ValueError(f"qsgd_dequant_apply_bucketed: x {tuple(x.shape)} "
+                         f"lvl {tuple(lvl.shape)} norms "
+                         f"{tuple(norms.shape)} q {q}")
+    if not _on_card(x, lvl, norms):
+        return dequant_apply_bucketed_plain(x, lvl, norms, s, gamma, q)
+    if n < 1:
+        raise ValueError("qsgd_dequant_apply_bucketed: empty x")
+    out = torch.empty_like(x)
+    name = ("qsgd_dequant_apply_bucketed_i8" if lvl.dtype == torch.int8
+            else "qsgd_dequant_apply_bucketed_i32")
+    _launch(name, x.data_ptr(), lvl.data_ptr(), norms.data_ptr(), float(s),
+            float(gamma), n, q, out.data_ptr())
+    LAUNCHES["qsgd_dequant_apply_bucketed"] += 1
     return out

@@ -38,7 +38,8 @@ _SLICE_MODULES = (
     "repro_torch.configs.gemma3_4b", "repro_torch.kernels.flash_decode",
     "repro_torch.models.blocks", "repro_torch.models.lm",
     "repro_torch.models.registry", "repro_torch.serve.engine",
-    "repro_torch.api.registries")
+    "repro_torch.api.registries", "repro_torch.kernels.elias",
+    "repro_torch.compress.elias", "repro_torch.compress.backends")
 
 
 def test_port_imports_without_jax_or_repro():

@@ -158,18 +158,20 @@ def test_short_run_matches_reference_spread(tasks):
 @pytest.mark.parametrize("kw,item", [
     pytest.param({"sampling": "uniform"}, None, id="sampling-constructs"),
     pytest.param({"faults": "edge"}, None, id="faults-constructs"),
-    ({"system": dataclasses.replace(EdgeSystem.paper_sec_vii(), q_dim=4096)},
-     2),
+    pytest.param({"system": dataclasses.replace(EdgeSystem.paper_sec_vii(),
+                                                q_dim=4096)}, None,
+                 id="kw2-2"),
 ])
 def test_scenario_outside_the_slice_raises(kw, item):
     """What the port does not carry raises naming its item; sampling and
-    fault models (item 6) construct."""
+    fault models (item 6) and a bucketed system (item 2) construct."""
     kw = {"system": EdgeSystem.paper_sec_vii(), **kw}
     if item is None:
         scn = Scenario(consts=MLProblemConstants(**CONSTS), T_max=1e5,
                        C_max=0.25, **kw)
         assert scn.sampling_obj.key == kw.get("sampling", "full")
         assert scn.faults_obj.key == kw.get("faults", "none")
+        assert scn._priced_system.q_dim == kw["system"].q_dim
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Scenario(consts=MLProblemConstants(**CONSTS), T_max=1e5, C_max=0.25,
@@ -191,30 +193,61 @@ def test_entry_points_outside_the_slice_raise(call, item):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    pytest.param({"bucket": 4096}, NotImplementedError, "item 2",
-                 id="kw0-2"),
+    pytest.param({"bucket": 4096}, None, None, id="kw0-2"),
     pytest.param({"sampling_S": N + 1}, ValueError, "outside",
                  id="bad-sampling_S"),
     pytest.param({"faults": object()}, TypeError, "FaultSpec",
                  id="faults-not-a-FaultSpec"),
 ])
 def test_runtime_outside_the_slice_raises(kw, error, match):
-    """Per-bucket norms are not ported (item 2); sampling and faults are,
-    and a malformed cohort size or fault contract is refused as in the
-    JAX package."""
+    """Per-bucket norms (item 2) construct and reach every codec of the
+    runtime; a malformed cohort size or fault contract is refused as in
+    the JAX package."""
+    if error is None:
+        cfg = GenQSGDConfig(K0=1, Kn=(1,) * N, B=1,
+                            step_rule=ConstantRule(0.1), s0=S, sn=[S] * N,
+                            **kw)
+        alg = GenQSGD(lambda p, b: None, (torch.zeros(N, 1),) * 2,
+                      {"w": (101770,)}, cfg)
+        assert {c.bucket for c in alg.worker_codecs + [alg.server_codec]} \
+            == {kw["bucket"]}
+        return
     with pytest.raises(error, match=match):
         GenQSGDConfig(K0=1, Kn=(1,) * N, B=1, step_rule=ConstantRule(0.1),
                       **kw)
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: make_codec(7, bucket=4096), 2),
-    (lambda: make_codec(7, wire="elias").encode_payload(
-        torch.zeros(8), torch.zeros(8)), 9),
+def _bucketed_codec_round_trips():
+    """make_codec(7, bucket=4096): one norm a bucket, decode(encode(y))
+    within one level of each bucket."""
+    codec = make_codec(7, bucket=4096)
+    y = torch.randn(10000, generator=torch.Generator().manual_seed(0))
+    lvl, norm = codec.encode(y, torch.rand(10000))
+    assert norm.shape == (3,)
+    err = (codec.decode(lvl, norm) - y).abs()
+    assert bool((err <= norm.repeat_interleave(4096)[:10000] / 7).all())
+
+
+def _elias_payload_round_trips():
+    """The elias payload: encode_payload -> decode_payload is decode of
+    encode's levels, and nbits is the realized stream."""
+    codec = make_codec(7, wire="elias")
+    y = torch.randn(800, generator=torch.Generator().manual_seed(1))
+    u = torch.rand(800, generator=torch.Generator().manual_seed(2))
+    words, norm, nbits = codec.encode_payload(y, u)
+    assert 0 < int(nbits) <= 32 * words.numel()
+    assert torch.equal(codec.decode_payload(words, norm, 800),
+                       codec.decode(*codec.encode(y, u)))
+
+
+@pytest.mark.parametrize("call", [
+    pytest.param(_bucketed_codec_round_trips, id="<lambda>-2"),
+    pytest.param(_elias_payload_round_trips, id="<lambda>-9"),
 ])
-def test_codecs_outside_the_slice_raise(call, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        call()
+def test_codecs_outside_the_slice_raise(call):
+    """Per-bucket norms (item 2) and the elias payload coder, refused
+    until this slice, construct and round-trip."""
+    call()
 
 
 @pytest.mark.parametrize("s,pack,match", [(8, True, "s <= 7"),
