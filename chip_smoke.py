@@ -61,7 +61,24 @@ Phases, each of which fails the script on error:
      bucketed wire's bits, one round on the card against the CPU, the
      bucketed and the whole-message round timed in turns (6 pairs of 40
      rounds on the same draws), 20 rounds profiled;
-  4. sampling and faults on the same task and constants:
+  4. the batched and fused GIA solver (``phase_sweep``) at phase 3's
+     constants and system (N = 10, D = 101,770), with every kernel's
+     launch counter read as 0 around it: opt_bench.py's 1,024-point
+     one-signature grid (Gen-C, 32 C_max over linspace(0.2, 0.6) x 32
+     gamma over geomspace(0.004, 0.02)) through ``sweep_scenarios(...,
+     backend="torch-fused")`` cold and warm — exactly one CUDA-graph
+     capture for the signature over both passes, warm rows equal to the
+     cold ones, warm solves/s, chunks replayed and host syncs — a 16-point
+     evenly spaced subsample against ``backend="numpy"`` (s a point) by
+     the Plan targets of ``tests/test_torch_solver.py``; the baseline
+     table of table_baselines.py (its column list and -fix presets
+     copied here): the 13 -opt columns as one heterogeneous sweep with
+     ``parallel=True``, equal to a serial sweep's rows and to the NumPy
+     sweep's, the 9 -fix columns through ``min_feasible_K0``, and its 9
+     claims, all passing; 5 rows padded to 8 bitwise the unpadded rows,
+     and the same rows through ``backend="torch"`` (the batched GP solve
+     a GIA iteration) within the Plan targets of the NumPy solver;
+  5. sampling and faults on the same task and constants:
      ``Scenario(..., T_max=2e5, sampling=uniform(8), faults=edge_faults(
      stragglers 0.3 x 4, crashes 0.05 for 3 rounds, corruption 0.01,
      slack 1.5, adaptive deadline)).optimize()`` -> ``run(plan,
@@ -77,12 +94,12 @@ Phases, each of which fails the script on error:
      bits and costs; the model bitwise equal where the card repeats runs
      bitwise, else within two server levels; the ledger written only with
      obs on); a 20-round ``run`` profiled;
-  5. the GQFedWAvg closed loop at the same width:
+  6. the GQFedWAvg closed loop at the same width:
      ``Scenario(..., family="gqfedwavg").optimize()`` (rotated codec,
      d' = 2^17) -> ``run(plan, max_rounds=100)``, counters read as in 3;
      one round with unequal weights and beta = 0.9 on the card against the
      CPU; 20 rounds profiled;
-  6. the payload entry point: ``make_codec(s, wire, kind, backend="cuda")
+  7. the payload entry point: ``make_codec(s, wire, kind, backend="cuda")
      .encode_payload`` -> ``decode_payload`` for kind {qsgd, rotated} x
      (wire, s) {(int4, 7), (int8, 127)} over the 10 worker deltas of a
      phase-5 round and 1-D messages of 1,000 .. 2^22 coordinates, with the
@@ -94,7 +111,7 @@ Phases, each of which fails the script on error:
      packed wires, and wire "elias" at s in {7, 127} with and without
      buckets (the elias streams decoded by ``elias_decode``), each held
      against the plain versions and ``decode(*encode(y, u))``;
-  7. flash decode (K6) against its plain version on the card, within
+  8. flash decode (K6) against its plain version on the card, within
      rtol/atol 1e-5 (both accumulate in f32; a bf16 output within one bf16
      ulp), at qwen3-1.7b's serving shape (8 slots x 4096 positions, 8 kv
      heads, G = 2, dh = 128) over bf16 and f32 caches, a gemma3-width
@@ -108,7 +125,7 @@ Phases, each of which fails the script on error:
      gemma3-width and the G = 16 shapes beside its byte bound, its plain
      version and ``scaled_dot_product_attention``, with the blocks the
      card keeps resident;
-  8. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
+  9. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
      max_len=4096)`` at full width (28 layers, d_model 2048, vocab
      151,936; f32 weights from ``lm.init_params`` with a seeded generator,
      bf16 cache) serves 16 requests (prompts of 256-2048 tokens, 32 new
@@ -193,6 +210,25 @@ ELIAS_CASES = ((1000, 7), (1000, 127), (MAIN_D, 7), (MAIN_D, 127))
 ELIAS_NS = (1000, (1 << 15) + 1, MAIN_D)
 #: the serving run of phase 8: qwen3-1.7b at full width, 8 slots of 4096
 #: positions, 16 requests of 256-2048 prompt tokens and 32 new tokens
+#: phase_sweep: opt_bench.py's one-signature grid (Gen-C over C_max in
+#: linspace(0.2, 0.6, 32) x gamma in geomspace(0.004, 0.02, 32)), a subsample
+#: of it against the NumPy solver, and table_baselines.py's columns (the
+#: Sec.-VII step rules and I_n of benchmarks/common.py, copied here: the
+#: script imports nothing from benchmarks/)
+SWEEP_CMAX = (0.2, 0.6, 32)
+SWEEP_GAMMA = (0.004, 0.02, 32)
+SWEEP_SUBSAMPLE = 16
+TABLE_STEPS = {"C": dict(gamma=0.01), "E": dict(gamma=0.02, rho=0.9995),
+               "D": dict(gamma=0.02, rho=600.0)}
+TABLE_I_N = 6000.0
+TABLE_FAMILY = {"Gen": "genqsgd", "PM": "pm", "FA": "fa", "PR": "pr"}
+TABLE_ALGOS = (["Gen-C", "Gen-E", "Gen-D", "Gen-O"]
+               + [f"{a}-{m}-{x}" for a in ("PM", "FA", "PR")
+                  for m in ("C", "E", "D") for x in ("opt", "fix")])
+#: the -fix columns' preset (Kn, B): PM Kn=1 B=32, FA l=1 (Kn=I_n/B) B=600,
+#: PR Kn=4 B=1, each on the free-variable Gen problem of its m
+TABLE_FIX = {"PM": (1, 32), "FA": (TABLE_I_N / 600.0, 600), "PR": (4, 1)}
+PAD_ROWS, PAD_TO = 5, 8
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
@@ -1111,6 +1147,253 @@ def phase_main_path() -> dict:
                    gamma)
     return {"launches": launches, "ms_round": ms_round, "task": task,
             "consts": consts}
+
+
+def table_scenario(name: str, system, consts, C_max: float = 0.25,
+                   T_max: float = 1e5):
+    """A baseline-table column ('Gen-O', 'PM-E-opt', 'FA-C-fix', ...) as a
+    Scenario, as benchmarks/common.py's make_scenario builds it."""
+    from repro_torch.api import Scenario, make_step_rule
+    parts = name.split("-")
+    m = "J" if parts[:2] == ["Gen", "O"] else parts[1]
+    step = None if m == "J" else make_step_rule(m, **TABLE_STEPS[m])
+    return Scenario(system=system, consts=consts, T_max=T_max, C_max=C_max,
+                    family=TABLE_FAMILY[parts[0]], step=step,
+                    samples_per_worker=TABLE_I_N)
+
+
+def plan_target_failures(ref, got) -> list:
+    """Where GIA results miss the Plan targets of the port's CPU tests
+    (tests/test_torch_solver.py): feasibility, iterations, history length,
+    integer recovery equal, E and history within rel 1e-9, z within 1e-5
+    (1e-4 for a row with no feasible iteration: a stalled phase-I point)."""
+    import numpy as np
+    bad = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        atol = 1e-5 if a.iterations else 1e-4
+        h = np.asarray(a.history)
+        checks = {
+            "feasible": a.feasible == b.feasible,
+            "iterations": a.iterations == b.iterations,
+            "integer point": (a.K0, a.B, tuple(a.Kn)) ==
+                             (b.K0, b.B, tuple(b.Kn)),
+            "E": abs(b.E - a.E) <= 1e-9 * abs(a.E),
+            "history": len(a.history) == len(b.history) and bool(np.all(
+                np.abs(np.asarray(b.history) - h) <= 1e-9 * np.abs(h))),
+            "z": bool(np.all(np.abs(a.z - b.z) <= atol)),
+        }
+        bad += [(i, k) for k, ok in checks.items() if not ok]
+    return bad
+
+
+def chunk_device_ms(key, rows: int) -> float:
+    """Device time of one replay of the captured chunk of the signature
+    ``key`` at ``rows`` rows, by CUDA events (every row is finished by
+    then, but a replay runs every kernel of the chunk all the same)."""
+    import torch
+    from repro_torch.opt import gia_fused
+    shape, = [p.shapes[rows] for k, p in gia_fused._PROGRAMS.items()
+              if k[0] == key and rows in p.shapes]
+    out = []
+    with torch.cuda.stream(shape.stream):
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            shape.graph.replay()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def phase_sweep(consts, dev="cuda", n_cmax: int = SWEEP_CMAX[2],
+                n_gamma: int = SWEEP_GAMMA[2],
+                subsample: int = SWEEP_SUBSAMPLE) -> dict:
+    """The batched and fused GIA on the card: the one-signature grid cold
+    and warm (one capture over both), a subsample against the NumPy
+    solver, the baseline table's 13 -opt columns as one heterogeneous
+    sweep (parallel and serial, each row equal to the NumPy sweep's) with
+    its 9 -fix columns and 9 claims, and a padded batch bitwise its rows;
+    no QSGD kernel launches meanwhile."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.api import ConstantRule, EdgeSystem, sweep_scenarios
+    from repro_torch.opt import (RefreshPlan, min_feasible_K0,
+                                 solve_param_opt_batched)
+    from repro_torch.opt import gia_fused
+
+    system = EdgeSystem.paper_sec_vii(dim=MAIN_D)
+    reset_launches()
+    out = {}
+
+    # (a) the 1,024-point grid of opt_bench.py, cold then warm
+    base = table_scenario("Gen-C", system, consts)
+    scns = [dataclasses.replace(base, C_max=float(c),
+                                step=ConstantRule(float(g)))
+            for c in np.linspace(*SWEEP_CMAX[:2], n_cmax)
+            for g in np.geomspace(*SWEEP_GAMMA[:2], n_gamma)]
+    n = len(scns)
+    key = RefreshPlan.build([scns[0].problem()]).signature_key
+    c0 = gia_fused.capture_count(key)
+    t0 = time.perf_counter()
+    cold = sweep_scenarios(scns, backend="torch-fused", parallel=False,
+                           device=dev)
+    t_cold = time.perf_counter() - t0
+    obs.enable(reset=True)
+    try:
+        t0 = time.perf_counter()
+        warm = sweep_scenarios(scns, backend="torch-fused", parallel=False,
+                               device=dev)
+        t_warm = time.perf_counter() - t0
+        spans = [e["args"] for e in obs.TRACER.events()
+                 if e["name"] == "gia.fused_dispatch"]
+    finally:
+        obs.disable()
+        obs.TRACER.clear()
+        obs.REGISTRY.reset()
+    captures = gia_fused.capture_count(key) - c0
+    if captures != 1 or warm.n_groups != 1:
+        raise AssertionError(f"{captures} captures, {warm.n_groups} groups "
+                             f"for one signature over two passes")
+    if warm.rows != cold.rows:
+        raise AssertionError("the warm pass's rows differ from the cold's")
+    chunks = sum(a["chunks"] for a in spans)
+    # one host read after each chunk and one for the results
+    syncs = chunks + len(spans)
+    chunk_ms = chunk_device_ms(key, n) if dev != "cpu" else float("nan")
+    feasible = sum(r["feasible"] for r in warm.rows)
+    idx = list(range(0, n, max(1, n // subsample)))[:subsample]
+    probs = [scns[i].problem() for i in idx]
+    t0 = time.perf_counter()
+    ref = solve_param_opt_batched(probs, backend="numpy")
+    s_numpy = (time.perf_counter() - t0) / len(idx)
+    got = solve_param_opt_batched(probs, backend="torch-fused", device=dev)
+    bad = plan_target_failures(ref, got)
+    for i, r in zip(idx, ref):
+        row = warm.rows[i]
+        if (row["K0"], row["Kn"], row["B"], row["feasible"],
+                row["iterations"]) != (r.K0, tuple(int(k) for k in r.Kn),
+                                       r.B, r.feasible, r.iterations) \
+                or abs(row["E"] - r.E) > 1e-9 * abs(r.E):
+            bad.append((i, "grid row"))
+    if bad:
+        raise AssertionError(f"the fused sweep misses the Plan targets of "
+                             f"the NumPy solver at (row, field) {bad}")
+    out.update(points=n, captures=captures, cold_s=t_cold, warm_s=t_warm,
+               warm_solves_per_s=n / t_warm, numpy_s_per_point=s_numpy,
+               chunks=chunks, host_syncs=syncs, feasible_points=feasible,
+               chunk_device_ms=chunk_ms)
+    log(f"[sweep] {n}-point grid, one signature: cold {t_cold:.3f} s, warm "
+        f"{t_warm:.3f} s = {n / t_warm:.1f} solves/s ({captures} capture "
+        f"over both passes; warm: {chunks} chunks of {gia_fused._CHUNK} "
+        f"steps replayed, {syncs} host syncs; a chunk {chunk_ms:.3f} ms of "
+        f"device = {chunk_ms / gia_fused._CHUNK:.3f} ms a step, "
+        f"{chunks * chunk_ms / 1e3:.3f} s of the warm pass); NumPy "
+        f"{s_numpy:.4f} s/point over {len(idx)} points = "
+        f"{s_numpy * n / t_warm:.1f}x the warm sweep's time a point; "
+        f"{feasible} feasible; the {len(idx)}-point subsample meets the Plan "
+        f"targets, fused rows equal the grid's")
+
+    # (b) the baseline table: 13 -opt columns as one heterogeneous sweep
+    opt_names = [a for a in TABLE_ALGOS if not a.endswith("-fix")]
+    opt_scns = [table_scenario(a, system, consts) for a in opt_names]
+    t0 = time.perf_counter()
+    tab = sweep_scenarios(opt_scns, names=opt_names, backend="torch-fused",
+                          parallel=True, device=dev)
+    t_tab = time.perf_counter() - t0
+    serial = sweep_scenarios(opt_scns, names=opt_names,
+                             backend="torch-fused", parallel=False,
+                             device=dev)
+    t0 = time.perf_counter()
+    tab_np = sweep_scenarios(opt_scns, names=opt_names, backend="numpy",
+                             parallel=False)
+    t_tab_np = time.perf_counter() - t0
+    if serial.rows != tab.rows:
+        raise AssertionError("parallel and serial fused sweeps differ")
+    for r, q in zip(tab.rows, tab_np.rows):
+        if r != q:
+            raise AssertionError(f"{r['name']}: fused row {r} != NumPy {q}")
+    by = {r["name"]: r for r in tab.rows}
+    for name in TABLE_ALGOS:
+        if not name.endswith("-fix"):
+            continue
+        algo, m, _ = name.split("-")
+        prob = table_scenario(f"Gen-{m}", system, consts).problem()
+        kn, B = TABLE_FIX[algo]
+        Kn = np.full(system.N, max(1, int(round(kn))), dtype=np.int64)
+        K0, ok = min_feasible_K0(prob, Kn, B, ctol=0.0, ttol=0.0)
+        by[name] = {"name": name, "E": prob.evaluate(K0, Kn, B, None)["E"],
+                    "feasible": bool(ok)}
+
+    def feas(a):
+        return by[a]["feasible"]
+
+    def E(a):
+        return by[a]["E"]
+
+    def le(a, b):
+        return E(a) <= E(b) * 1.001
+
+    claims = {
+        "Gen-O <= Gen-C": le("Gen-O", "Gen-C"),
+        "Gen-O <= Gen-E": le("Gen-O", "Gen-E"),
+        "Gen-O <= Gen-D": le("Gen-O", "Gen-D"),
+        "Gen-C <= PM-C-opt": not feas("PM-C-opt") or le("Gen-C", "PM-C-opt"),
+        "Gen-C <= PR-C-opt": not feas("PR-C-opt") or le("Gen-C", "PR-C-opt"),
+        "Gen-E <= PM-E-opt": not feas("PM-E-opt") or le("Gen-E", "PM-E-opt"),
+        "Gen-D <= PM-D-opt": not feas("PM-D-opt") or le("Gen-D", "PM-D-opt"),
+        "PM-C-opt <= PM-C-fix": not (feas("PM-C-opt") and feas("PM-C-fix"))
+        or le("PM-C-opt", "PM-C-fix"),
+        "PR-C-opt <= PR-C-fix": not (feas("PR-C-opt") and feas("PR-C-fix"))
+        or le("PR-C-opt", "PR-C-fix"),
+    }
+    for name in TABLE_ALGOS:
+        log(f"[sweep]   {name:12s} E={E(name):.6g} feasible={feas(name)}")
+    for k, v in claims.items():
+        log(f"[sweep]   [{'PASS' if v else 'FAIL'}] {k}")
+    n_pass = sum(claims.values())
+    if n_pass != len(claims):
+        raise AssertionError(f"baseline claims {n_pass}/{len(claims)}")
+    out.update(table_s=t_tab, table_numpy_s=t_tab_np,
+               table_groups=tab.n_groups, claims=f"{n_pass}/{len(claims)}")
+    log(f"[sweep] baseline table: 13 -opt columns in {tab.n_groups} groups, "
+        f"parallel {t_tab:.3f} s (NumPy sweep {t_tab_np:.3f} s), rows equal "
+        f"to the NumPy sweep's and to a serial sweep's; claims "
+        f"{n_pass}/{len(claims)} PASS")
+
+    # (c) a 5-row batch padded to 8 rows: its rows bitwise unpadded
+    probs = [table_scenario("Gen-C", system, consts, C_max=float(c)).problem()
+             for c in np.linspace(0.22, 0.4, PAD_ROWS)]
+    plain = solve_param_opt_batched(probs, backend="torch-fused", device=dev)
+    padded = solve_param_opt_batched(probs, backend="torch-fused", device=dev,
+                                     pad_to=PAD_TO)
+    for a, b in zip(plain, padded):
+        if not (np.array_equal(a.z, b.z) and a.history == b.history
+                and (a.iterations, a.converged, a.K0, a.B, a.E)
+                == (b.iterations, b.converged, b.K0, b.B, b.E)):
+            raise AssertionError("a padded row differs from its unpadded "
+                                 "solve")
+    log(f"[sweep] {PAD_ROWS} rows padded to {PAD_TO}: bitwise the unpadded "
+        f"rows")
+    # the same rows through the "torch" backend (each GIA iteration's GP
+    # solves batched on the card, the refresh on the host)
+    t0 = time.perf_counter()
+    rows = solve_param_opt_batched(probs, backend="torch", device=dev)
+    t_torch = time.perf_counter() - t0
+    ref = solve_param_opt_batched(probs, backend="numpy")
+    bad = plan_target_failures(ref, rows)
+    if bad:
+        raise AssertionError(f"backend 'torch' misses the Plan targets of "
+                             f"the NumPy solver at (row, field) {bad}")
+    log(f"[sweep] backend 'torch' on the same {PAD_ROWS} rows: {t_torch:.3f}"
+        f" s, within the Plan targets of the NumPy solver")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"QSGD kernels launched during the sweep: "
+                             f"{launches}")
+    out["launches"] = launches
+    return out
 
 
 def phase_sampled_faults(task, consts, rounds: int = SAMPLED_ROUNDS,
@@ -2222,6 +2505,7 @@ def main() -> int:
     path = timed("main", phase_main_path)
     bucketed = timed("bucketed", phase_bucketed, path["task"],
                      path["consts"])
+    sweep = timed("sweep", phase_sweep, path["consts"])
     samp = timed("sampled", phase_sampled_faults, path["task"],
                  path["consts"])
     wavg = timed("gqfedwavg", phase_gqfedwavg, path["task"], path["consts"])
@@ -2241,8 +2525,8 @@ def main() -> int:
     # elias_decode the bucketed and elias payloads, K6 the serving run),
     # every path beside it
     by_path = {"genqsgd": path["launches"], "bucketed": bucketed["launches"],
-               "sampled": samp["launches"], "gqfedwavg": wavg["launches"],
-               "payload": pay["launches"],
+               "sweep": sweep["launches"], "sampled": samp["launches"],
+               "gqfedwavg": wavg["launches"], "payload": pay["launches"],
                "payload_buckets": pay_b["launches"],
                "serve": serve["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",

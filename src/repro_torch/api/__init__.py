@@ -19,9 +19,12 @@ Horvitz-Thompson weights on the card; ``report.drift()`` is the per-round
 drift ledger.  Step rules and the legacy family mapping live in
 :mod:`repro_torch.api.registries`.
 
-Sweeps (item 7), PlanServer (item 8) and the SPMD task and trainer
-(item 9) are not ported yet: asking this module for them raises
-:class:`NotImplementedError` naming the item in ROADMAP.md, Queue 1.
+``scenario.sweep(over={...})`` and :func:`sweep_scenarios` solve whole
+grids through the fused GIA on the card (``device="cpu"`` runs the same
+step program eagerly on the host).  PlanServer (item 8) and the SPMD task
+and trainer (item 9) are not ported yet: asking this module for them
+raises :class:`NotImplementedError` naming the item in ROADMAP.md,
+Queue 1.
 """
 from .. import not_ported
 from ..core.convergence import MLProblemConstants
@@ -36,10 +39,12 @@ from .plan import Plan, RunReport
 from .registries import (FAMILIES, STEP_RULES, family_names, make_step_rule,
                          make_varmap, register_family, register_step_rule)
 from .scenario import Scenario
+from .sweep import SweepReport, sweep_scenarios
 from .tasks import MNISTTask, QuadraticTask
 
 __all__ = [
     "Scenario", "Plan", "RunReport", "Objective",
+    "SweepReport", "sweep_scenarios",
     "EdgeSystem", "MLProblemConstants",
     "ConstantRule", "ExponentialRule", "DiminishingRule", "StepRule",
     "make_rule", "make_step_rule", "make_varmap",
@@ -51,8 +56,8 @@ __all__ = [
 ]
 
 #: the JAX package's api names this package does not carry yet -> item
-_NOT_PORTED = {"SweepReport": 7, "sweep_scenarios": 7, "PlanServer": 8,
-               "SpmdTask": 9, "GenQSGDTrainer": 9, "round_comm_bits": 9}
+_NOT_PORTED = {"PlanServer": 8, "SpmdTask": 9, "GenQSGDTrainer": 9,
+               "round_comm_bits": 9}
 
 
 def __getattr__(name):

@@ -8,14 +8,20 @@ loop as two calls:
     plan   = scenario.optimize()          # GIA/CGP -> frozen Plan
     report = scenario.run(plan, task)     # train -> RunReport vs predictions
 
+plus the batched third call: ``scenario.sweep(over={...})`` expands a
+budget / rule grid, solves it through the batched GIA engine (one captured
+step program per structure group on the card), and returns a
+:class:`~repro_torch.api.sweep.SweepReport` with tidy rows and Pareto-front
+extraction.
+
 The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
 ``pr``, ``gqfedwavg`` and registered variants), every participation model
 (``full``, ``uniform``, ``importance``) and fault model (``none``,
-``edge``), the scalar NumPy solver and the reference runtime, and writes
+``edge``), the scalar NumPy solver, the batched (``"torch"``) and fused
+(``"torch-fused"``) device solvers and the reference runtime, and writes
 the drift ledger of each run when :mod:`repro_torch.obs` is on, on a
 system with or without per-bucket norms (``q_dim``); the rest of the JAX
-package's Scenario (sweeps, the batched and fused solvers, PlanServer, the
-SPMD runtime) raises
+package's Scenario (PlanServer, the SPMD runtime) raises
 :class:`NotImplementedError` naming its item in ROADMAP.md.
 """
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..core.genqsgd import GenQSGD, flatten_like
 from ..core.step_rules import (ConstantRule, DiminishingRule, ExponentialRule,
                                StepRule)
 from ..families import AlgorithmFamily, resolve
-from ..opt.gia import solve_param_opt
+from ..opt.gia import solve_param_opt, solve_param_opt_batched
 from ..opt.problems import Objective, ParamOptProblem, VarMap
 from .plan import Plan, RunReport
 from .tasks import MNISTTask
@@ -214,24 +220,50 @@ class Scenario:
 
     def optimize(self, m=None, z0=None, tol: float = 1e-4,
                  max_iter: int = 60, verbose: bool = False,
-                 backend: str = "numpy", server=None) -> Plan:
+                 backend: str = "numpy", server=None,
+                 device="cuda") -> Plan:
         """Solve the scenario's parameter-optimization problem (Algorithms
-        2-5) with the scalar NumPy GIA and freeze the solution into a
-        :class:`Plan`.  ``z0`` warm-starts the GIA (e.g. from a previously
-        solved neighbor's ``Plan``).  The batched/fused solvers
-        (``backend="jnp"``/``"jnp-fused"``) and PlanServer (``server``) are
-        not ported yet."""
+        2-5) and freeze the solution into a :class:`Plan`.
+
+        ``backend`` picks the solver engine: ``"numpy"`` (the scalar
+        reference loop, on the host; ``device`` is not read) or
+        ``"torch"``/``"torch-fused"`` on ``device`` — the fused engine
+        captures one step program per structure signature into a
+        process-level cache, so repeated ``optimize()`` calls across
+        distinct Scenario objects reuse it.  ``"jnp"``/``"jnp-fused"``
+        raise ``ValueError`` naming these counterparts.  ``z0`` warm-starts
+        the GIA (e.g. from a previously solved neighbor's ``Plan``).
+        PlanServer (``server``) is not ported yet."""
         if server is not None:
             raise not_ported("PlanServer (Scenario.optimize(server=...))", 8)
-        if backend != "numpy":
-            raise not_ported(f"solver backend {backend!r}", 7)
         m = self._resolve(m)
         with _obs.trace.span("scenario.optimize", m=str(m.value),
                              family=str(self.family), backend=backend):
             prob = self.problem(m)
-            r = solve_param_opt(prob, z0=z0, tol=tol, max_iter=max_iter,
-                                verbose=verbose)
+            if backend == "numpy":
+                r = solve_param_opt(prob, z0=z0, tol=tol, max_iter=max_iter,
+                                    verbose=verbose)
+            else:
+                r = solve_param_opt_batched(
+                    [prob], z0s=None if z0 is None else [z0], tol=tol,
+                    max_iter=max_iter, backend=backend, verbose=verbose,
+                    device=device)[0]
             return self._plan_from_result(m, r)
+
+    def sweep(self, over, names=None, backend: str = "auto",
+              tol: float = 1e-4, max_iter: int = 60, parallel: bool = True,
+              device="cuda"):
+        """Expand ``over`` (field name -> iterable of values; ``rule`` /
+        ``cmax`` / ``tmax`` aliases accepted) into Scenario variants, solve
+        them all through the batched engine on ``device`` (``"auto"`` is
+        the fused engine), and return a
+        :class:`~repro_torch.api.sweep.SweepReport` (tidy rows,
+        ``pareto_front()``, ``to_csv``)."""
+        from .sweep import expand_grid, sweep_scenarios
+        scenarios = expand_grid(self, over)
+        return sweep_scenarios(scenarios, names=names, backend=backend,
+                               tol=tol, max_iter=max_iter, parallel=parallel,
+                               device=device)
 
     # ------------------------------------------------------------------
     def run(self, plan: Plan, task=None, backend: str = "reference",

@@ -59,7 +59,6 @@ import torch
 
 from ..compress import make_codec
 from ..data.federated import sample_indices
-from ..families import check_agg_weights, check_momentum
 from ..obs import REGISTRY as _METRICS
 from ..obs.metrics import GLOBAL_SWITCH as _OBS_ON
 from .step_rules import StepRule
@@ -119,6 +118,7 @@ class GenQSGDConfig:
     faults: Optional[object] = None  # FaultSpec (None = no faults)
 
     def __post_init__(self):
+        from ..families import check_agg_weights, check_momentum  # cycle
         if self.agg_weights is not None:
             object.__setattr__(self, "agg_weights",
                                check_agg_weights(self.agg_weights,

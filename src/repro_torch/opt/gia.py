@@ -5,10 +5,17 @@
 relaxation and then constructs a nearly-optimal integer point (the paper
 relaxes K, B to reals and notes integer recovery is straightforward).
 
-The lockstep-batched and fused device GIA are not ported yet (ROADMAP
-Queue 1, item 7).
+``solve_param_opt_batched`` is the same algorithm in lockstep over a batch of
+instances sharing one structure signature (same objective m, family varmap,
+worker count — e.g. one Fig.-5 sweep line): every outer iteration refreshes
+all expansion-point coefficients and performs the whole batch's GP solves in
+one :func:`~repro_torch.opt.gp.solve_gp_batch` call, with per-instance
+convergence / stall masks freezing finished instances.
+``backend="torch-fused"`` goes further and runs the *entire* outer loop —
+coefficient refresh included — as one captured step program per structure
+signature on the card (:mod:`repro_torch.opt.gia_fused`).
 
-For m=J (Problem 11) the solve finishes with a Gen-C-seeded restart:
+For m=J (Problem 11) both entry points finish with a Gen-C-seeded restart:
 the companion constant-step problem is solved at a few canonical step sizes,
 the joint GIA re-runs from each solved point (with log gamma appended), and
 the best KKT point wins — the cold-started surrogate sequence can converge
@@ -19,15 +26,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .gp import GPResult, solve_gp
+from ..obs import REGISTRY as _METRICS
+from ..obs import trace as _trace
+from ..obs.metrics import GLOBAL_SWITCH as _OBS_ON
+from .gp import GPResult, refuse_jax_backend, solve_gp, solve_gp_batch
 from .problems import Objective, ParamOptProblem
+from .structure import GPStructure, structure_signature
 
-__all__ = ["GIAResult", "solve_param_opt", "min_feasible_K0",
-           "min_feasible_K0_joint"]
+__all__ = ["GIAResult", "solve_param_opt", "solve_param_opt_batched",
+           "min_feasible_K0", "min_feasible_K0_joint"]
 
 
 @dataclasses.dataclass
@@ -110,6 +122,141 @@ def solve_param_opt(problem: ParamOptProblem,
     return result
 
 
+def _record_solve(backend: str, n_rows: int, results: List["GIAResult"],
+                  pad_to: int) -> None:
+    """Per-dispatch solver metrics (host-side only; inert when obs is off).
+
+    Each GIA iteration refreshes the surrogate coefficients once, so
+    ``GIAResult.iterations`` doubles as the per-row refresh count.
+    """
+    if not _OBS_ON.on:
+        return
+    _METRICS.counter("gia.rows_solved", backend=backend).inc(n_rows)
+    _METRICS.histogram("gia.batch_rows", backend=backend).observe(n_rows)
+    _METRICS.histogram("gia.batch_occupancy", backend=backend).observe(
+        n_rows / max(int(pad_to), n_rows))
+    it_h = _METRICS.histogram("gia.iterations_per_row", backend=backend)
+    refreshes = 0
+    for r in results:
+        it_h.observe(r.iterations)
+        refreshes += r.iterations
+    _METRICS.counter("gia.refreshes", backend=backend).inc(refreshes)
+
+
+def solve_param_opt_batched(problems: Sequence[ParamOptProblem],
+                            z0s: Optional[Sequence[Optional[np.ndarray]]]
+                            = None,
+                            tol: float = 1e-4, max_iter: int = 60,
+                            backend: str = "torch",
+                            verbose: bool = False,
+                            joint_restart: bool = True,
+                            pad_to: int = 0,
+                            device="cuda") -> List[GIAResult]:
+    """Lockstep-batched ``solve_param_opt`` over same-structure instances.
+
+    Per-instance semantics match the scalar loop exactly: each instance sees
+    the same sequence of expansion points, phase-I retries, and stall exits
+    it would see standalone (the ``backend="numpy"`` path is bit-identical
+    row-for-row, on the host); ``backend="torch"`` performs each iteration's
+    GP solves in one batched interior-point call on ``device``;
+    ``backend="torch-fused"`` runs the whole outer loop — surrogate refresh
+    included — as one captured step program per structure signature on
+    ``device`` (:mod:`repro_torch.opt.gia_fused`; nothing to print per
+    iteration, so ``verbose`` is a no-op there).  ``"jnp"`` and
+    ``"jnp-fused"`` raise ``ValueError`` naming these counterparts.
+
+    ``z0s`` warm-starts individual rows: entries are starting points in
+    log-space, or ``None`` for that row's cold ``z_init()`` — warm and cold
+    rows mix freely inside one batch (a row warm-started at a previously
+    solved KKT point re-converges in 1-3 GIA iterations instead of running
+    cold phase-I).  ``pad_to`` (fused backend only) pads the device batch to
+    a fixed row count so variable-size micro-batches of one signature share
+    a single captured program; padding rows are discarded before the m=J
+    restart and never finalized.
+    """
+    refuse_jax_backend(backend)
+    problems = list(problems)
+    if not problems:
+        return []
+    sig = structure_signature(problems[0])
+    for p in problems[1:]:
+        if structure_signature(p) != sig:
+            raise ValueError(
+                f"batched GIA needs one structure signature, got both {sig} "
+                f"and {structure_signature(p)}; group instances by "
+                f"(m, family, N) first")
+    B = len(problems)
+    if z0s is None:
+        zs = [p.z_init() for p in problems]
+    else:
+        zs = [p.z_init() if z is None
+              else np.asarray(z, dtype=np.float64).copy()
+              for p, z in zip(problems, z0s)]
+    _t0 = time.perf_counter() if _OBS_ON.on else 0.0
+    if backend == "torch-fused":
+        from .gia_fused import solve_gia_fused
+        results = [
+            _finalize(p, np.asarray(z, dtype=np.float64), history, conv)
+            for p, (z, history, conv)
+            in zip(problems, solve_gia_fused(problems, zs, tol, max_iter,
+                                             pad_to=pad_to, device=device))]
+        if _OBS_ON.on:
+            _trace.add_span("gia.solve", _t0, time.perf_counter(),
+                            backend=backend, rows=B,
+                            m=str(problems[0].m.value))
+            _record_solve(backend, B, results, pad_to)
+        if joint_restart and problems[0].m is Objective.JOINT:
+            results = _joint_restart_batched(problems, results, tol,
+                                             max_iter, backend,
+                                             pad_to=pad_to, device=device)
+        return results
+    structure = GPStructure(problems[0])
+    history: List[List[float]] = [[] for _ in range(B)]
+    converged = [False] * B
+    active = [True] * B
+    stall = [0] * B
+    for it in range(max_iter):
+        if not any(active):
+            break
+        pack = structure.pack_batch(problems, zs, active=active)
+        # projected expansion points (inactive rows keep their final z —
+        # their pack rows are stale placeholders the backends skip)
+        zs = [pack.z0[i] if active[i] else zs[i] for i in range(B)]
+        res = solve_gp_batch(pack, backend=backend, device=device)
+        for i in range(B):
+            if not active[i]:
+                continue
+            if not res.feasible[i]:
+                zs[i] = res.z[i]                # retry from min-slack point
+                stall[i] += 1
+                if stall[i] > 8:
+                    active[i] = False
+                continue
+            stall[i] = 0
+            # projected-vs-projected step, as in the scalar loop
+            step = float(np.max(np.abs(
+                problems[i].project_expansion(res.z[i]) - zs[i])))
+            zs[i] = res.z[i]
+            history[i].append(float(res.obj[i]))
+            if verbose:
+                print(f"  GIA[{i}] iter {it}: E={res.obj[i]:.6g} "
+                      f"step={step:.3g}")
+            if step < tol:
+                converged[i] = True
+                active[i] = False
+    results = [_finalize(p, np.asarray(zs[i], dtype=np.float64), history[i],
+                         converged[i])
+               for i, p in enumerate(problems)]
+    if _OBS_ON.on:
+        _trace.add_span("gia.solve", _t0, time.perf_counter(),
+                        backend=backend, rows=B, m=str(problems[0].m.value))
+        _record_solve(backend, B, results, pad_to=0)
+    if joint_restart and problems[0].m is Objective.JOINT:
+        results = _joint_restart_batched(problems, results, tol, max_iter,
+                                         backend, device=device)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # m=J Gen-C-seeded restart (Lemma 4 guard)
 # ---------------------------------------------------------------------------
@@ -147,6 +294,39 @@ def _better_kkt(a: GIAResult, b: GIAResult) -> GIAResult:
     if a.feasible != b.feasible:
         return a if a.feasible else b
     return b if b.E < a.E else a
+
+
+def _joint_restart_batched(problems: Sequence[ParamOptProblem],
+                           colds: List[GIAResult], tol: float, max_iter: int,
+                           backend: str, pad_to: int = 0,
+                           device="cuda") -> List[GIAResult]:
+    """Batched counterpart of the scalar restart in :func:`solve_param_opt`:
+    one batched companion solve + one batched warm re-solve per seed round
+    (companions share a signature, so each round stays two program runs;
+    ``pad_to`` keeps both at the caller's fixed batch shape).
+    """
+    i_ex = problems[0].vmap.names.index("extra")
+    cands = [_joint_seed_gammas(p, r) for p, r in zip(problems, colds)]
+    best = list(colds)
+    for j in range(max(len(c) for c in cands)):
+        idxs = [i for i, c in enumerate(cands) if len(c) > j]
+        comps = [_companion_constant(problems[i], cands[i][j]) for i in idxs]
+        rcs = solve_param_opt_batched(comps, tol=tol, max_iter=max_iter,
+                                      backend=backend, pad_to=pad_to,
+                                      device=device)
+        z0s = []
+        for i, rc in zip(idxs, rcs):
+            zw = rc.z.copy()
+            zw[i_ex] = np.log(cands[i][j])
+            z0s.append(zw)
+        warms = solve_param_opt_batched([problems[i] for i in idxs], z0s=z0s,
+                                        tol=tol, max_iter=max_iter,
+                                        backend=backend, joint_restart=False,
+                                        pad_to=pad_to, device=device)
+        for i, w in zip(idxs, warms):
+            best[i] = _better_kkt(best[i], w)
+    return best
+
 
 
 def _finalize(problem: ParamOptProblem, z: np.ndarray,

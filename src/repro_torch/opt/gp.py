@@ -20,7 +20,8 @@ import numpy as np
 
 from .posy import Posy
 
-__all__ = ["GP", "solve_gp", "GPResult"]
+__all__ = ["GP", "solve_gp", "GPResult", "BatchedGPResult", "GP_BACKENDS",
+           "register_gp_backend", "solve_gp_batch"]
 
 
 @dataclasses.dataclass
@@ -202,3 +203,81 @@ def solve_gp(gp: GP, z0: Optional[np.ndarray] = None, tol_gap: float = 1e-8,
     viol = float(bat.g(z).max())
     return GPResult(z, np.exp(z), gp.objective.value(z), viol <= 1e-7, viol,
                     total_iters)
+
+
+# ---------------------------------------------------------------------------
+# batched solving: pluggable backends (mirroring repro_torch.compress.backends)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class BatchedGPResult:
+    """Per-instance results of one batched solve (leading axis = batch)."""
+    z: np.ndarray              # (B, n) log-space optima
+    obj: np.ndarray            # (B,)
+    feasible: np.ndarray       # (B,) bool
+    max_violation: np.ndarray  # (B,)
+    newton_iters: np.ndarray   # (B,) int
+
+
+def _solve_batch_numpy(pack, device=None) -> BatchedGPResult:
+    """Reference backend: the scalar interior point looped over the batch
+    (on the host; ``device`` is not read).
+
+    Operates on the unpadded per-instance GPs, so each active row is
+    bit-identical to a standalone :func:`solve_gp` call — the parity anchor
+    for every other backend.  Inactive rows return placeholders (z0
+    passthrough, infeasible) that callers must not read.
+    """
+    rs = [solve_gp(gp, pack.z0[i]) if pack.active[i] else
+          GPResult(pack.z0[i], np.exp(pack.z0[i]), np.nan, False, np.inf, 0)
+          for i, gp in enumerate(pack.gps)]
+    return BatchedGPResult(
+        z=np.stack([r.z for r in rs]),
+        obj=np.array([r.obj for r in rs]),
+        feasible=np.array([r.feasible for r in rs], dtype=bool),
+        max_violation=np.array([r.max_violation for r in rs]),
+        newton_iters=np.array([r.newton_iters for r in rs], dtype=np.int64))
+
+
+GP_BACKENDS = {"numpy": _solve_batch_numpy}
+
+#: the JAX package's device backends -> the port's counterparts
+JAX_BACKENDS = {"jnp": "torch", "jnp-fused": "torch-fused"}
+
+
+def register_gp_backend(name: str, solve_batch) -> None:
+    """Register ``solve_batch(pack: PackedBatch, device)``, which returns a
+    :class:`BatchedGPResult`."""
+    GP_BACKENDS[str(name)] = solve_batch
+
+
+def refuse_jax_backend(backend: str) -> None:
+    """``"jnp"``/``"jnp-fused"`` name the JAX package's engines: raise
+    ``ValueError`` naming the port's counterparts."""
+    if backend in JAX_BACKENDS:
+        raise ValueError(
+            f"solver backend {backend!r} is the JAX package's; the port's "
+            f"device backends are 'torch' (batched GP solves) and "
+            f"'torch-fused' (the whole GIA), counterpart "
+            f"{JAX_BACKENDS[backend]!r}")
+
+
+def solve_gp_batch(pack, backend: str = "numpy",
+                   device="cuda") -> BatchedGPResult:
+    """Solve every instance of a
+    :class:`~repro_torch.opt.structure.PackedBatch`.
+
+    ``backend="numpy"`` loops the reference scalar solver on the host;
+    ``backend="torch"`` solves the whole batch at once on ``device`` with
+    the batched float64 interior point (:mod:`repro_torch.opt.gp_batched`).
+    (The GIA-level ``backend="torch-fused"`` never reaches this function —
+    it runs the whole outer loop in :mod:`repro_torch.opt.gia_fused`.)
+    """
+    refuse_jax_backend(backend)
+    if backend == "torch" and backend not in GP_BACKENDS:
+        from . import gp_batched  # noqa: F401  (registers itself on import)
+    try:
+        fn = GP_BACKENDS[backend]
+    except KeyError:
+        raise ValueError(f"unknown GP backend {backend!r}; registered: "
+                         f"{sorted(GP_BACKENDS)}") from None
+    return fn(pack, device)

@@ -4,6 +4,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +40,10 @@ _SLICE_MODULES = (
     "repro_torch.models.blocks", "repro_torch.models.lm",
     "repro_torch.models.registry", "repro_torch.serve.engine",
     "repro_torch.api.registries", "repro_torch.kernels.elias",
-    "repro_torch.compress.elias", "repro_torch.compress.backends")
+    "repro_torch.compress.elias", "repro_torch.compress.backends",
+    "repro_torch.opt.structure", "repro_torch.opt.refresh",
+    "repro_torch.opt.gp_batched", "repro_torch.opt.gia_fused",
+    "repro_torch.api.sweep")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -51,3 +55,24 @@ def test_port_imports_without_jax_or_repro():
     names = set(proc.stdout.split())
     assert len(names) >= 40, proc.stdout
     assert not set(_SLICE_MODULES) - names, set(_SLICE_MODULES) - names
+
+
+def test_each_subpackage_imports_first():
+    """Every subpackage imports in a fresh process as the first import of
+    the port (``repro_torch.opt`` once failed there on a cycle through
+    ``repro_torch.families``), with jax and repro blocked."""
+    head = _BLOCKED_IMPORTS.split("import repro_torch\n")[0]
+    src = os.path.join(ROOT, "src", "repro_torch")
+    pkgs = sorted(d for d in os.listdir(src)
+                  if os.path.isfile(os.path.join(src, d, "__init__.py")))
+    assert "opt" in pkgs and "api" in pkgs
+
+    def first(pkg):
+        one = f"ROOT = {ROOT!r}\n" + head + f"\nimport repro_torch.{pkg}\n"
+        return subprocess.run([sys.executable, "-c", one],
+                              capture_output=True, text=True, cwd=ROOT,
+                              timeout=120)
+
+    with ThreadPoolExecutor(4) as pool:
+        for pkg, proc in zip(pkgs, pool.map(first, pkgs)):
+            assert proc.returncode == 0, (pkg, proc.stderr[-2000:])
