@@ -77,7 +77,32 @@ Phases, each of which fails the script on error:
      sweep's, the 9 -fix columns through ``min_feasible_K0``, and its 9
      claims, all passing; 5 rows padded to 8 bitwise the unpadded rows,
      and the same rows through ``backend="torch"`` (the batched GP solve
-     a GIA iteration) within the Plan targets of the NumPy solver;
+     a GIA iteration) within the Plan targets of the NumPy solver.  Then
+     PlanServer (``phase_planserver``) at the same constants and system:
+     serve_bench.py's full trace (its build_trace copied here: Gen-C,
+     Gen-E, Gen-D, Gen-O x 8 budgets over linspace(0.22, 0.45), 480
+     requests, the tail half exact repeats and half budgets jittered by
+     up to 0.2 %, Poisson arrivals at 400/s, open-loop with a barrier
+     after the 32 cold requests) through ``PlanServer(max_batch=16,
+     window_s=0.02)`` on the card — at most one capture a signature
+     (m=J's companion program counted apart), every handle resolved,
+     each hit's Plan equal to its filler's, the 32 cold rows within the
+     Plan targets of the NumPy server's rows and 16 evenly spaced warm
+     rows (converged) of their own NumPy solve from the same seed, the
+     stats' counts; solves/s, the hit rate, per-source p50/p99/mean
+     latency, queue waits, batches, a cold and a warm batch's chunks and
+     device ms a replayed chunk — then the first 128 requests through
+     ``PlanServer(backend="numpy")``; a wrong-shape warm seed in a queued
+     batch of three healthy rows (bisected, quarantined, poisoned; the
+     healthy Plans equal their solo solves; no capture added; a
+     synchronize raises nothing); an error and a host read inside a
+     capture, each leaving the caller's stream, no shape, no count and
+     free locks, the next call capturing afresh, bitwise; a program
+     captured on this thread and
+     replayed by the dispatcher, rows bitwise; a first capture (FA-C-opt)
+     in the dispatcher while this thread runs 50 quickstart rounds, the
+     rounds bitwise a solo run.  Kernel counters read 0 around the
+     server's work;
   5. sampling and faults on the same task and constants:
      ``Scenario(..., T_max=2e5, sampling=uniform(8), faults=edge_faults(
      stragglers 0.3 x 4, crashes 0.05 for 3 rounds, corruption 0.01,
@@ -154,6 +179,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -229,6 +255,22 @@ TABLE_ALGOS = (["Gen-C", "Gen-E", "Gen-D", "Gen-O"]
 #: PR Kn=4 B=1, each on the free-variable Gen problem of its m
 TABLE_FIX = {"PM": (1, 32), "FA": (TABLE_I_N / 600.0, 600), "PR": (4, 1)}
 PAD_ROWS, PAD_TO = 5, 8
+#: phase_planserver: serve_bench.py's FULL request trace (its build_trace is
+#: copied into plan_trace; the script imports nothing from benchmarks/):
+#: four signatures, 8 budgets each over linspace(0.22, 0.45) (32 cold
+#: requests), 480 requests in all, Poisson arrivals at 400/s, PlanServer(
+#: max_batch=16, window_s=0.02)
+PLAN_TRACE = dict(algos=("Gen-C", "Gen-E", "Gen-D", "Gen-O"), n_unique=8,
+                  n_total=480, rate_per_s=400.0, max_batch=16,
+                  window_s=0.02)
+#: the NumPy server's share of the trace (its first requests), where the
+#: whole trace would take it more than ~60 s
+PLAN_NUMPY_REQUESTS = 128
+#: sampled warm rows held against their own NumPy solve; training rounds
+#: run beside a first capture; rows solved across threads
+PLAN_WARM_CHECKS = 16
+PLAN_TRAIN_ROUNDS = 50
+PLAN_THREAD_ROWS = 5
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
@@ -1146,7 +1188,7 @@ def phase_main_path() -> dict:
     profile_rounds(algs["cuda"], x_gpu, (idx.cuda(), uw.cuda(), us.cuda()),
                    gamma)
     return {"launches": launches, "ms_round": ms_round, "task": task,
-            "consts": consts}
+            "consts": consts, "plan": plan}
 
 
 def table_scenario(name: str, system, consts, C_max: float = 0.25,
@@ -1205,6 +1247,71 @@ def chunk_device_ms(key, rows: int) -> float:
             b.synchronize()
             out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def plan_trace(rng, system, consts, algos, n_unique, n_total):
+    """serve_bench.py's seeded two-phase trace ``(populate, tail)``: every
+    unique (algo, budget) scenario (all cold), then exact repeats of them
+    (cache hits) and repeats with the budget jittered by up to 0.2 %
+    (warm starts), 50/50."""
+    import numpy as np
+    pool = [table_scenario(a, system, consts, C_max=float(c))
+            for a in algos for c in np.linspace(0.22, 0.45, n_unique)]
+    rng.shuffle(pool)
+    tail = []
+    while len(pool) + len(tail) < n_total:
+        base = pool[rng.integers(len(pool))]
+        if rng.random() < 0.5:
+            tail.append(base)                        # exact repeat: hit
+        else:
+            jitter = 1.0 + rng.uniform(-2e-3, 2e-3)
+            tail.append(dataclasses.replace(         # near-duplicate: warm
+                base, C_max=base.C_max * jitter))
+    return pool, tail
+
+
+def drive_trace(srv, phases, gaps):
+    """Submit ``phases`` open-loop at the arrival ``gaps`` (s), with a
+    barrier between the phases, as serve_bench.run does; returns the
+    handles and the wall time."""
+    handles = []
+    t0 = time.perf_counter()
+    for phase in phases:
+        for scn in phase:
+            time.sleep(gaps[len(handles)])
+            handles.append(srv.submit(scn))
+        for h in handles:
+            h.result(timeout=900)
+    return handles, time.perf_counter() - t0
+
+
+def keep_results(srv) -> tuple:
+    """Record, by ``id(handle)``, the GIA result each solved handle was
+    resolved with (the handles carry only the frozen Plan) and whether its
+    last dispatch ran m=J's restart (an all-warm m=J batch skips it); and
+    the names of the threads that resolved them."""
+    got, restarts, threads = {}, {}, set()
+    finish, dispatch = srv._finish, srv._dispatch
+
+    def on_finish(h, r, batch_size):
+        got[id(h)] = r
+        threads.add(threading.current_thread().name)
+        finish(h, r, batch_size)
+
+    def on_dispatch(rows, restart):
+        restarts.update((id(h), restart) for h in rows)
+        return dispatch(rows, restart)
+
+    srv._finish, srv._dispatch = on_finish, on_dispatch
+    return got, restarts, threads
+
+
+def lat_line(st) -> str:
+    """Per-source p50/p99/mean latency (ms) of ``PlanServer.stats()``."""
+    return "; ".join(
+        f"{k} n={v['count']} p50 {v['p50'] * 1e3:.3f} p99 "
+        f"{v['p99'] * 1e3:.3f} mean {v['mean'] * 1e3:.3f}"
+        for k, v in st["latency_s"].items())
 
 
 def phase_sweep(consts, dev="cuda", n_cmax: int = SWEEP_CMAX[2],
@@ -1393,6 +1500,434 @@ def phase_sweep(consts, dev="cuda", n_cmax: int = SWEEP_CMAX[2],
         raise AssertionError(f"QSGD kernels launched during the sweep: "
                              f"{launches}")
     out["launches"] = launches
+    return out
+
+
+def capture_failures(key, problems, dev, rows=(3, 4)) -> None:
+    """A capture that fails ends cleanly: an error raised inside it, and a
+    host read there (which invalidates it, so ending it raises too), each
+    at a padded row count not captured before.  Afterwards the caller's
+    stream is current again, nothing is capturing, no shape is kept or
+    counted, both locks are free and a synchronize raises nothing; the
+    next call captures afresh, its rows bitwise the 16-row dispatch's."""
+    import numpy as np
+    import torch
+    from repro_torch.opt import solve_param_opt_batched
+    from repro_torch.opt import gia_fused
+
+    ref = solve_param_opt_batched(problems, backend="torch-fused",
+                                  pad_to=PLAN_TRACE["max_batch"], device=dev)
+    prog, = [p for k, p in gia_fused._PROGRAMS.items() if k[0] == key
+             and k[1] == 60 and k[3] == str(torch.device(dev))]
+    real = gia_fused._Program.step
+    for how, b in zip(("an error", "a host read"), rows):
+        if b in prog.shapes:
+            raise AssertionError(f"{b} rows were captured before")
+        calls = []
+
+        def step(self, st, inp, how=how):
+            if torch.cuda.is_current_stream_capturing():
+                calls.append(how)
+                if len(calls) == 2 and how == "an error":
+                    raise RuntimeError("an error inside the capture")
+                if len(calls) == 2:
+                    float(st.t.sum())
+            return real(self, st, inp)
+
+        c0 = gia_fused.capture_count(key)
+        gia_fused._Program.step = step
+        try:
+            solve_param_opt_batched(problems, backend="torch-fused",
+                                    pad_to=b, device=dev)
+            failed = None
+        except Exception as e:                      # noqa: BLE001
+            failed = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        finally:
+            gia_fused._Program.step = real
+        state = {
+            "raised": failed is not None,
+            "caller's stream current":
+                torch.cuda.current_stream() == torch.cuda.default_stream(),
+            "not capturing": not torch.cuda.is_current_stream_capturing(),
+            "no shape kept": b not in prog.shapes,
+            "no capture counted": gia_fused.capture_count(key) == c0,
+            "locks free": not (prog.lock.locked()
+                               or gia_fused._CAPTURE_LOCK.locked())}
+        torch.cuda.synchronize()
+        again = solve_param_opt_batched(problems, backend="torch-fused",
+                                        pad_to=b, device=dev)
+        state["next call captures"] = gia_fused.capture_count(key) == c0 + 1
+        state["bitwise"] = all(np.array_equal(x.z, y.z)
+                               and x.history == y.history
+                               for x, y in zip(ref, again))
+        if not all(state.values()):
+            raise AssertionError(f"after {how} in a capture: {state}")
+        log(f"[planserver] {how} inside a capture at {b} rows: raised "
+            f"({failed}); the caller's stream current, no shape, no count, "
+            f"locks free, a synchronize clean; the next call captured "
+            f"afresh, rows bitwise")
+
+
+def phase_planserver(consts, plan, task, dev="cuda",
+                     n_total: int = PLAN_TRACE["n_total"],
+                     n_unique: int = PLAN_TRACE["n_unique"],
+                     numpy_requests: int = PLAN_NUMPY_REQUESTS,
+                     train_rounds: int = PLAN_TRAIN_ROUNDS) -> dict:
+    """PlanServer on the card at phase 3's constants and system: (1)
+    serve_bench.py's full trace (at most one capture a signature, every
+    handle resolved, hits equal to the solves that filled them, the cold
+    and sampled warm rows within the Plan targets of the NumPy solver);
+    (2) the same trace, or its first ``numpy_requests``, through the NumPy
+    server; (3) a wrong-shape warm seed in a batch of healthy rows,
+    isolated with no capture added; (4) a program captured on this thread
+    replayed by the dispatcher, bitwise; (5) a first capture beside
+    ``train_rounds`` quickstart rounds, which stay bitwise a solo run.  No
+    QSGD kernel launches for the server (phases 1-4)."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.api import EdgeSystem, Objective
+    from repro_torch.core.genqsgd import GenQSGD, flatten_like
+    from repro_torch.opt import (RefreshPlan, solve_param_opt_batched,
+                                 structure_signature)
+    from repro_torch.opt import gia_fused
+    from repro_torch.opt.gia import _companion_constant
+    from repro_torch.serve.planserver import (PlanHandle, PlanServer,
+                                              fingerprint)
+
+    system = EdgeSystem.paper_sec_vii(dim=MAIN_D)
+    cfg = PLAN_TRACE
+    mb, window = cfg["max_batch"], cfg["window_s"]
+    reset_launches()
+    out = {}
+
+    def trace():
+        rng = np.random.default_rng(0)
+        pop, tail = plan_trace(rng, system, consts, cfg["algos"], n_unique,
+                               n_total)
+        gaps = rng.exponential(1.0 / cfg["rate_per_s"],
+                               size=len(pop) + len(tail))
+        return pop, tail, gaps
+
+    def key_of(problem):
+        return RefreshPlan.build([problem]).signature_key
+
+    def same(a, b):
+        return dataclasses.asdict(a) == dataclasses.asdict(b)
+
+    # (1) the full trace on the card
+    pop, tail, gaps = trace()
+    joint = table_scenario("Gen-O", system, consts).problem()
+    comp_key = key_of(_companion_constant(joint, 1e-3 / float(consts.L)))
+    comp0 = gia_fused.capture_count(comp_key)
+    with PlanServer(max_batch=mb, window_s=window, device=dev) as srv:
+        got, restarts, _ = keep_results(srv)
+        handles, wall = drive_trace(srv, (pop, tail), gaps)
+    st = srv.stats()
+    caps = srv.compile_counts()
+    comp_caps = gia_fused.capture_count(comp_key) - comp0
+    n = len(handles)
+    src = collections.Counter(h.source for h in handles)
+    # rows that did not converge (never cached: their repeats solve cold)
+    non_conv = [(h.source, h.scenario.family, str(h.m.value),
+                 round(h.scenario.C_max, 6))
+                for h in handles if h.converged is False]
+    lat = st["latency_s"]
+    qw = st["queue_wait_s"]
+    log(f"[planserver] trace: {n} requests in {wall:.3f} s = "
+        f"{n / wall:.2f} solves/s; hit rate {st['hit_rate']:.4f} "
+        f"(hit {src['hit']}, warm {src['warm']}, cold {src['cold']}: "
+        f"{src['cold'] - len(pop)} of the tail); {st['batches']} batches, "
+        f"mean {st['mean_batch']:.3f} rows; captures per signature "
+        f"{list(caps.values())} (m=J's companion program {comp_caps}); "
+        f"non_converged {st['non_converged']} {non_conv}")
+    log(f"[planserver] latency ms: {lat_line(st)}; queue_wait ms p50 "
+        f"{qw['p50'] * 1e3:.3f} p99 {qw['p99'] * 1e3:.3f}")
+    failed = [h.error for h in handles if h.error is not None]
+    if failed:
+        raise AssertionError(f"{len(failed)} requests failed: {failed[:3]}")
+    if len(caps) != len(cfg["algos"]) or any(c > 1 for c in caps.values()) \
+            or comp_caps > 1:
+        raise AssertionError(f"captures per signature {caps}, m=J's "
+                             f"companion {comp_caps}")
+    want = dict(submitted=n, queue_depth=0, inflight=0)
+    if {k: st[k] for k in want} != want or \
+            st["hits"] + st["warm"] + st["cold"] != n or \
+            any(h.source != "cold" for h in handles[:len(pop)]):
+        raise AssertionError(f"stats {st}")
+    filled = {(h.sig, h.fp): h for h in handles
+              if h.source != "hit" and h.converged}
+    for h in handles:
+        if h.source == "hit":
+            f = filled.get((h.sig, h.fp))
+            if f is None or not same(f.plan, h.plan):
+                raise AssertionError("a hit's Plan differs from the solve "
+                                     "that filled its cache entry")
+    out.update(requests=n, wall_s=wall, solves_per_s=n / wall,
+               hit_rate=st["hit_rate"], batches=st["batches"],
+               mean_batch=st["mean_batch"], captures=list(caps.values()),
+               companion_captures=comp_caps,
+               latency_ms={k: {q: v[q] * 1e3 for q in ("p50", "p99", "mean")}
+                           for k, v in lat.items()},
+               queue_wait_ms={q: qw[q] * 1e3 for q in ("p50", "p99")},
+               non_converged=st["non_converged"])
+
+    # where a batch's time goes: one cold and one warm Gen-C batch again,
+    # chunks counted, a replayed chunk timed on the device
+    gen_c = structure_signature(table_scenario("Gen-C", system,
+                                               consts).problem())
+    cold_b = [h for h in handles[:len(pop)] if h.sig == gen_c][:mb]
+    warm_b = [h for h in handles if h.source == "warm"
+              and h.sig == gen_c][:mb]
+    timed = {}
+    obs.enable(reset=True)
+    try:
+        for name, rows in (("cold", cold_b), ("warm", warm_b)):
+            obs.TRACER.clear()
+            t0 = time.perf_counter()
+            solve_param_opt_batched([h.problem for h in rows],
+                                    z0s=[h.z0 for h in rows],
+                                    backend="torch-fused", pad_to=mb,
+                                    device=dev)
+            t = time.perf_counter() - t0
+            chunks = sum(e["args"]["chunks"] for e in obs.TRACER.events()
+                         if e["name"] == "gia.fused_dispatch")
+            timed[name] = (len(rows), chunks, t)
+    finally:
+        obs.disable()
+        obs.TRACER.clear()
+        obs.REGISTRY.reset()
+    ckey = key_of(cold_b[0].problem)
+    chunk_ms = chunk_device_ms(ckey, mb) if dev != "cpu" else float("nan")
+    for name, (rows, chunks, t) in timed.items():
+        log(f"[planserver] a {name} Gen-C batch of {rows} rows (padded to "
+            f"{mb}): {chunks} chunks x {chunk_ms:.3f} ms of device a "
+            f"replayed chunk = {chunks * chunk_ms:.3f} ms of device, "
+            f"{t * 1e3:.3f} ms wall")
+    chunk_all = {a: chunk_device_ms(
+        key_of(table_scenario(a, system, consts).problem()), mb)
+        for a in cfg["algos"]} if dev != "cpu" else {}
+    log(f"[planserver] device ms a replayed chunk at {mb} rows: " + ", ".join(
+        f"{a} {v:.3f}" for a, v in chunk_all.items()))
+    out.update(batch_chunks={k: v[1] for k, v in timed.items()},
+               batch_wall_ms={k: v[2] * 1e3 for k, v in timed.items()},
+               chunk_device_ms=chunk_ms, chunk_device_ms_by_algo=chunk_all)
+
+    # (2) the NumPy server on the same trace (or its first requests)
+    pop, tail, gaps = trace()
+    n_np = min(numpy_requests or n, n)
+    with PlanServer(backend="numpy", max_batch=mb, window_s=window) as nsrv:
+        ngot, _, _ = keep_results(nsrv)
+        nhandles, nwall = drive_trace(nsrv, (pop, tail[:n_np - len(pop)]),
+                                      gaps)
+    nst = nsrv.stats()
+    log(f"[planserver] NumPy server, "
+        + ("the whole trace" if n_np == n else
+           f"the trace's first {n_np} of {n} requests (the whole trace "
+           f"would take it over ~60 s)")
+        + f": {n_np} in {nwall:.3f} s = {n_np / nwall:.2f} solves/s; "
+        f"latency ms: {lat_line(nst)}")
+    pwall = wall
+    if n_np < n:        # the card's server on the same requests, again
+        with PlanServer(max_batch=mb, window_s=window, device=dev) as again:
+            _, pwall = drive_trace(again, (pop, tail[:n_np - len(pop)]),
+                                   gaps)
+        log(f"[planserver] the card's server on the same {n_np} requests "
+            f"(its programs already captured): {pwall:.3f} s = "
+            f"{n_np / pwall:.2f} solves/s; latency ms: "
+            f"{lat_line(again.stats())}")
+    out.update(numpy_requests=n_np, numpy_wall_s=nwall,
+               numpy_solves_per_s=n_np / nwall,
+               card_solves_per_s_same_requests=n_np / pwall,
+               numpy_latency_ms={k: {q: v[q] * 1e3 for q in
+                                     ("p50", "p99", "mean")}
+                                 for k, v in nst["latency_s"].items()})
+    # the populate phase's cold rows against the NumPy server's (its
+    # batched rows are the scalar solver's row for row), the sampled warm
+    # rows against their own NumPy solve from the same seed, with the
+    # restart as their batch ran it (an all-warm m=J batch skips it)
+    bad = []
+    for i in range(len(pop)):
+        h, nh = handles[i], nhandles[i]
+        if nh.scenario is not pop[i] or h.source != "cold":
+            raise AssertionError("the two traces are not the same")
+        bad += [("cold", i, k) for _, k in
+                plan_target_failures([ngot[id(nh)]], [got[id(h)]])]
+    warm = [h for h in handles if h.source == "warm"]
+    pick = [warm[int(i)] for i in np.linspace(0, len(warm) - 1,
+                                              PLAN_WARM_CHECKS).round()]
+    for i, h in enumerate(pick):
+        ref = solve_param_opt_batched([h.problem], z0s=[h.z0],
+                                      backend="numpy",
+                                      joint_restart=restarts[id(h)])
+        bad += [("warm", i, k) for _, k in
+                plan_target_failures(ref, [got[id(h)]])]
+        if not h.converged:
+            bad.append(("warm", i, "converged"))
+    if bad:
+        raise AssertionError(f"the card's rows miss the Plan targets of the "
+                             f"NumPy solver at {bad}")
+    log(f"[planserver] the {len(pop)} cold rows and {len(pick)} evenly "
+        f"spaced warm rows (all converged) meet the Plan targets of the "
+        f"NumPy solver; every hit's Plan equals its filler's")
+
+    # (3) poison isolation: a wrong-shape warm seed inside a batch of three
+    # healthy rows
+    budgets = (0.22, 0.25, 0.3)
+    healthy_s = [table_scenario("Gen-C", system, consts, C_max=c)
+                 for c in budgets]
+    bad_s = table_scenario("Gen-C", system, consts, C_max=0.27)
+    prob = bad_s.problem(Objective.CONSTANT)
+    poison = PlanHandle(bad_s, Objective.CONSTANT, prob,
+                        structure_signature(prob), fingerprint(prob), b"x")
+    poison.source, poison.z0 = "warm", np.zeros(3)
+    key = key_of(prob)
+    c0 = gia_fused.capture_count(key)
+    psrv = PlanServer(max_batch=mb, window_s=0.2, retry_base_s=0.001,
+                      retry_cap_s=0.01, start=False, device=dev)
+    healthy = [psrv.submit(s) for s in healthy_s]
+    with psrv._cond:
+        psrv._queues[poison.sig].insert(1, poison)
+    with psrv:
+        plans = [h.result(timeout=600) for h in healthy]
+        try:
+            poison.result(timeout=600)
+            raise AssertionError("the poison request resolved")
+        except RuntimeError as e:
+            err = str(e)
+    if dev != "cpu":
+        torch.cuda.synchronize()            # no error left on the card
+    pst = psrv.stats()
+    solo = [s._plan_from_result(Objective.CONSTANT, r) for s, r in zip(
+        healthy_s, [solve_param_opt_batched([s.problem()],
+                                            backend="torch-fused",
+                                            pad_to=mb, device=dev)[0]
+                    for s in healthy_s])]
+    if not all(same(a, b) for a, b in zip(plans, solo)) or \
+            pst["bisections"] < 1 or pst["quarantined"] != 1 or \
+            pst["poisoned"] != 1 or gia_fused.capture_count(key) != c0:
+        raise AssertionError(f"poison isolation: stats {pst}, captures "
+                             f"{gia_fused.capture_count(key) - c0}")
+    log(f"[planserver] poison: healthy Plans equal their solo solves; "
+        f"bisections {pst['bisections']}, quarantined "
+        f"{pst['quarantined']}, poisoned {pst['poisoned']} ({err}); "
+        f"captures added 0; a synchronize afterwards raises nothing")
+    if dev != "cpu":
+        capture_failures(key, [s.problem() for s in healthy_s[:2]], dev)
+
+    # (4) a program captured on this thread, replayed by the dispatcher
+    scns = [table_scenario("PM-C-opt", system, consts, C_max=float(c))
+            for c in np.linspace(0.22, 0.4, PLAN_THREAD_ROWS)]
+    key = key_of(scns[0].problem())
+    c0 = gia_fused.capture_count(key)
+    main = solve_param_opt_batched([s.problem() for s in scns],
+                                   backend="torch-fused", pad_to=mb,
+                                   device=dev)
+    c1 = gia_fused.capture_count(key)
+    tsrv = PlanServer(max_batch=mb, window_s=window, start=False, device=dev)
+    tgot, _, threads = keep_results(tsrv)
+    ths = [tsrv.submit(s) for s in scns]
+    with tsrv:
+        for h in ths:
+            h.result(timeout=600)
+    for h, r in zip(ths, main):
+        a = tgot[id(h)]
+        if not (np.array_equal(a.z, r.z) and a.iterations == r.iterations
+                and a.history == r.history and h.batch_size == len(scns)):
+            raise AssertionError("a row replayed by the dispatcher differs "
+                                 "from the main thread's")
+    if c1 - c0 != 1 or gia_fused.capture_count(key) != c1 or \
+            any(tsrv.compile_counts().values()) or \
+            threads != {"planserver"}:
+        raise AssertionError(f"captures: main thread {c1 - c0}, server "
+                             f"{tsrv.compile_counts()} on {threads}")
+    log(f"[planserver] across threads: PM-C-opt captured on the main thread"
+        f" ({len(scns)} rows padded to {mb}), replayed by the dispatcher "
+        f"with no new capture; z, iterations and history bitwise")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"QSGD kernels launched by the server: "
+                             f"{launches}")
+    out["launches"] = launches
+
+    # (5) a first capture beside training rounds on the card
+    def rounds(seed=0):
+        gcfg = plan.to_genqsgd_config(max_K0=train_rounds, seed=seed)
+        alg = GenQSGD(task.loss, task.make_data(plan.N), task.shapes, gcfg)
+        g = torch.Generator(device=task.device)
+        x0 = flatten_like(task.init_params(g.manual_seed(seed)))
+        xf, _ = alg.run(x0, g.manual_seed(seed + 1),
+                        eval_every=max(1, gcfg.K0))
+        if xf.is_cuda:
+            torch.cuda.synchronize()
+        return xf
+
+    solo_x = rounds()
+    # a step program no earlier phase captured: gqfedwavg's m=C signature
+    # shares Gen-C's program (one layout), which the trace captured
+    gq = table_scenario("FA-C-opt", system, consts)
+    key = key_of(gq.problem())
+    c0 = gia_fused.capture_count(key)
+    entered, spans = threading.Event(), []
+    # the capture on the card (the first eager run on the CPU)
+    hook = "_capture" if dev != "cpu" else "run"
+    real = getattr(gia_fused._Program, hook)
+
+    def capture(self, *args):
+        entered.set()
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    setattr(gia_fused._Program, hook, capture)
+    try:
+        with PlanServer(max_batch=mb, window_s=window, device=dev) as gsrv:
+            h = gsrv.submit(gq)
+            if not entered.wait(600):
+                raise AssertionError("the server never began its capture")
+            t0 = time.perf_counter()
+            beside_x = rounds()
+            t1 = time.perf_counter()
+            gplan = h.result(timeout=600)
+    finally:
+        setattr(gia_fused._Program, hook, real)
+    again_x = rounds()
+    (s0, s1), = spans
+    overlap = min(t1, s1) - max(t0, s0)
+    gsolo = gq._plan_from_result(Objective.CONSTANT, solve_param_opt_batched(
+        [gq.problem()], backend="torch-fused", pad_to=mb, device=dev)[0])
+    added = gia_fused.capture_count(key) - c0
+    if added != 1 or not same(gplan, gsolo):
+        raise AssertionError(f"beside training: {added} captures; Plan "
+                             f"{gplan} against its solo solve {gsolo}")
+    workers = 1 if len(set(plan.sn)) == 1 else plan.N
+    server = 0 if plan.s0 is None else 1
+    r3 = 3 * train_rounds
+    want = expected_launches(qsgd_sumsq=r3 * (workers + server),
+                             qsgd_quantize=r3 * (workers + server),
+                             qsgd_dequant_apply=r3 * server)
+    if dev != "cpu" and read_launches() != want:   # plain versions: none
+        raise AssertionError(f"launches {read_launches()} != {want}")
+    diff = float((beside_x - solo_x).abs().max())
+    repeat = float((again_x - solo_x).abs().max())
+    log(f"[planserver] beside training: FA-C-opt's first capture "
+        f"({s1 - s0:.3f} s) overlapped {train_rounds} quickstart rounds "
+        f"({t1 - t0:.3f} s) by {overlap:.3f} s; its Plan equals its solo "
+        f"solve; final x bitwise the solo run's: "
+        f"{torch.equal(beside_x, solo_x)} (max abs diff {diff:.3g}; a "
+        f"second solo run: {torch.equal(again_x, solo_x)}, {repeat:.3g})")
+    if overlap <= 0:
+        raise AssertionError("the capture did not overlap the rounds")
+    if not torch.equal(again_x, solo_x):
+        raise AssertionError("two solo runs of the rounds differ")
+    if not torch.equal(beside_x, solo_x):
+        raise AssertionError(f"the rounds beside a capture differ from a "
+                             f"solo run by {diff:.3g}")
+    out.update(train_overlap_s=overlap, train_bitwise=True,
+               capture_s=s1 - s0)
     return out
 
 
@@ -2506,6 +3041,8 @@ def main() -> int:
     bucketed = timed("bucketed", phase_bucketed, path["task"],
                      path["consts"])
     sweep = timed("sweep", phase_sweep, path["consts"])
+    plans = timed("planserver", phase_planserver, path["consts"],
+                  path["plan"], path["task"])
     samp = timed("sampled", phase_sampled_faults, path["task"],
                  path["consts"])
     wavg = timed("gqfedwavg", phase_gqfedwavg, path["task"], path["consts"])
@@ -2525,7 +3062,8 @@ def main() -> int:
     # elias_decode the bucketed and elias payloads, K6 the serving run),
     # every path beside it
     by_path = {"genqsgd": path["launches"], "bucketed": bucketed["launches"],
-               "sweep": sweep["launches"], "sampled": samp["launches"],
+               "sweep": sweep["launches"], "planserver": plans["launches"],
+               "sampled": samp["launches"],
                "gqfedwavg": wavg["launches"], "payload": pay["launches"],
                "payload_buckets": pay_b["launches"],
                "serve": serve["launches"]}

@@ -21,9 +21,11 @@ drift ledger.  Step rules and the legacy family mapping live in
 
 ``scenario.sweep(over={...})`` and :func:`sweep_scenarios` solve whole
 grids through the fused GIA on the card (``device="cpu"`` runs the same
-step program eagerly on the host).  PlanServer (item 8) and the SPMD task
-and trainer (item 9) are not ported yet: asking this module for them
-raises :class:`NotImplementedError` naming the item in ROADMAP.md,
+step program eagerly on the host); ``scenario.optimize(server=srv)``
+routes one request through a :class:`PlanServer` (signature
+micro-batching and a warm-start plan cache over the same engine).  The
+SPMD task and trainer (item 9) are not ported yet: asking this module for
+them raises :class:`NotImplementedError` naming the item in ROADMAP.md,
 Queue 1.
 """
 from .. import not_ported
@@ -52,15 +54,19 @@ __all__ = [
     "family_names", "AlgorithmFamily", "GQFedWAvgFamily", "get_family",
     "SamplingModel", "uniform", "importance",
     "FaultModel", "FaultTrace", "edge_faults",
-    "MNISTTask", "QuadraticTask",
+    "MNISTTask", "QuadraticTask", "PlanServer",
 ]
 
 #: the JAX package's api names this package does not carry yet -> item
-_NOT_PORTED = {"PlanServer": 8, "SpmdTask": 9, "GenQSGDTrainer": 9,
-               "round_comm_bits": 9}
+_NOT_PORTED = {"SpmdTask": 9, "GenQSGDTrainer": 9, "round_comm_bits": 9}
 
 
 def __getattr__(name):
+    # lazy: the PlanServer lives in repro_torch.serve (Scenario.optimize(
+    # server=...) accepts one)
+    if name == "PlanServer":
+        from ..serve.planserver import PlanServer
+        return PlanServer
     if name in _NOT_PORTED:
         raise not_ported(f"repro_torch.api.{name}", _NOT_PORTED[name])
     raise AttributeError(f"module 'repro_torch.api' has no attribute "

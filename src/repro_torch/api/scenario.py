@@ -18,11 +18,13 @@ The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
 ``pr``, ``gqfedwavg`` and registered variants), every participation model
 (``full``, ``uniform``, ``importance``) and fault model (``none``,
 ``edge``), the scalar NumPy solver, the batched (``"torch"``) and fused
-(``"torch-fused"``) device solvers and the reference runtime, and writes
-the drift ledger of each run when :mod:`repro_torch.obs` is on, on a
-system with or without per-bucket norms (``q_dim``); the rest of the JAX
-package's Scenario (PlanServer, the SPMD runtime) raises
-:class:`NotImplementedError` naming its item in ROADMAP.md.
+(``"torch-fused"``) device solvers, plan serving
+(``optimize(server=...)``, :class:`~repro_torch.serve.PlanServer`) and the
+reference runtime, and writes the drift ledger of each run when
+:mod:`repro_torch.obs` is on, on a system with or without per-bucket
+norms (``q_dim``); the rest of the JAX package's Scenario (the SPMD
+runtime) raises :class:`NotImplementedError` naming its item in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -233,9 +235,13 @@ class Scenario:
         distinct Scenario objects reuse it.  ``"jnp"``/``"jnp-fused"``
         raise ``ValueError`` naming these counterparts.  ``z0`` warm-starts
         the GIA (e.g. from a previously solved neighbor's ``Plan``).
-        PlanServer (``server``) is not ported yet."""
+        Passing ``server`` (a :class:`~repro_torch.serve.PlanServer`)
+        routes the request through its micro-batching queue and warm-start
+        cache instead — the server's own ``tol``/``max_iter``/``device``
+        (and backend) govern, and concurrent same-signature requests share
+        one fused dispatch."""
         if server is not None:
-            raise not_ported("PlanServer (Scenario.optimize(server=...))", 8)
+            return server.solve(self, m=m)
         m = self._resolve(m)
         with _obs.trace.span("scenario.optimize", m=str(m.value),
                              family=str(self.family), backend=backend):

@@ -291,19 +291,27 @@ class _Program:
         """Capture ``chunk`` steps over static buffers on ``stream``; the
         first step at this shape runs eagerly there first (library handles
         and workspaces are made outside the capture).  A capture that
-        fails raises: there is no eager fallback on the card."""
+        fails raises: there is no eager fallback on the card.  The failed
+        graph is dropped with its stream, and the caller's stream is made
+        current again (``torch.cuda.graph`` skips that when ending an
+        invalidated capture raises), so the next call captures afresh."""
         with torch.cuda.stream(stream):
             self.step(state, inp)           # warm-up, result discarded
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
+        caller = torch.cuda.current_stream(self.device)
         with _CAPTURE_LOCK:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                st = state
-                for _ in range(self.chunk):
-                    st = self.step(st, inp)
-                for dst, src in zip(state, st):
-                    dst.copy_(src)
+            try:
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    st = state
+                    for _ in range(self.chunk):
+                        st = self.step(st, inp)
+                    for dst, src in zip(state, st):
+                        dst.copy_(src)
+            except BaseException:
+                torch.cuda.set_stream(caller)
+                raise
         return _Shape(inp, state, graph, stream)
 
     def results(self, st: FusedState):
@@ -336,9 +344,6 @@ class _Program:
             return torch.as_tensor(x, dtype=torch.float64, device=dev)
 
         B = z0.shape[0]
-        fresh = B not in self.shapes
-        if fresh:
-            self._count_build(B)
         if dev.type == "cuda":
             shape = self.shapes.get(B)
             stream = shape.stream if shape else torch.cuda.Stream(device=dev)
@@ -346,7 +351,10 @@ class _Program:
                 inp = self.inputs(tol, plan)
                 state = self.init(put(z0), inp)
             if shape is None:
-                shape = self.shapes[B] = self._capture(inp, state, stream)
+                # stored, and counted, only once the capture has ended well
+                shape = self._capture(inp, state, stream)
+                self.shapes[B] = shape
+                self._count_build(B)
             else:
                 with torch.cuda.stream(stream):
                     shape.inp.copy_(inp)
@@ -361,7 +369,6 @@ class _Program:
                         break
                 out = self.results(shape.state)
             return out, chunks
-        self.shapes.setdefault(B, None)
         inp = self.inputs(tol, plan)
         st = self.init(put(z0), inp)
         chunks = 0
@@ -371,6 +378,9 @@ class _Program:
             chunks += 1
             if not bool(st.active.any()):
                 break
+        if B not in self.shapes:            # counted once its run ended well
+            self.shapes[B] = None
+            self._count_build(B)
         return self.results(st), chunks
 
 
@@ -410,8 +420,15 @@ def solve_gia_fused(problems: Sequence, z0s: Sequence[np.ndarray],
     """
     dev = resolve_device(device)
     plan = RefreshPlan.build(problems)
+    z0 = [np.asarray(z, dtype=np.float64) for z in z0s]
+    for i, z in enumerate(z0):
+        # on the host, before any program or device call: a wrong-shape
+        # warm seed costs no capture and leaves no device state behind
+        if z.shape != (plan.n,):
+            raise ValueError(f"z0 of row {i} has shape {z.shape}; the "
+                             f"signature has n={plan.n} variables")
+    z0 = np.stack(z0)
     prog = _program(plan, max_iter, _CHUNK, dev)
-    z0 = np.stack([np.asarray(z, dtype=np.float64) for z in z0s])
     pad = int(pad_to) - len(problems)
     if pad > 0:
         def _pad(a):

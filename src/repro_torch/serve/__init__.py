@@ -1,16 +1,21 @@
-"""repro_torch.serve — token serving (``repro/serve``).
+"""repro_torch.serve — serving layers: token decoding and plan solving.
 
-:class:`ServeEngine` (:mod:`repro_torch.serve.engine`) is slot-based token
-serving over the LM decode step.  The JAX package's PlanServer (plan
-solving) is not carried yet (ROADMAP.md, Queue 1, item 8).
+Two engines share the continuous-batching idea:
+
+  * :class:`ServeEngine` (:mod:`repro_torch.serve.engine`) — slot-based
+    token serving over the LM decode step;
+  * :class:`PlanServer` (:mod:`repro_torch.serve.planserver`) —
+    multi-tenant ``Scenario.optimize`` serving: signature micro-batching
+    into the fused GIA solver on the card plus a warm-start plan cache.
+
+Imports are lazy: ``PlanServer`` consumers never pull the LM model stack
+and ``ServeEngine`` consumers never pull the optimizer.
 """
-from .. import not_ported
-
 _ENGINE = ("Request", "ServeEngine")
 _PLAN = ("PlanServer", "PlanHandle", "PlanCache", "fingerprint",
          "fingerprint_distance")
 
-__all__ = list(_ENGINE)
+__all__ = list(_ENGINE + _PLAN)
 
 
 def __getattr__(name):
@@ -18,6 +23,7 @@ def __getattr__(name):
         from . import engine
         return getattr(engine, name)
     if name in _PLAN:
-        raise not_ported(f"{name} (plan serving)", 8)
+        from . import planserver
+        return getattr(planserver, name)
     raise AttributeError(
         f"module 'repro_torch.serve' has no attribute {name!r}")

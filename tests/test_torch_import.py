@@ -43,7 +43,7 @@ _SLICE_MODULES = (
     "repro_torch.compress.elias", "repro_torch.compress.backends",
     "repro_torch.opt.structure", "repro_torch.opt.refresh",
     "repro_torch.opt.gp_batched", "repro_torch.opt.gia_fused",
-    "repro_torch.api.sweep")
+    "repro_torch.api.sweep", "repro_torch.serve.planserver")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -76,3 +76,17 @@ def test_each_subpackage_imports_first():
     with ThreadPoolExecutor(4) as pool:
         for pkg, proc in zip(pkgs, pool.map(first, pkgs)):
             assert proc.returncode == 0, (pkg, proc.stderr[-2000:])
+
+
+def test_planserver_import_loads_no_model_stack():
+    """As in the JAX package, plan serving never pulls the LM models or
+    the token-serving engine (``repro_torch.serve`` loads both lazily)."""
+    code = (f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORTS.split(
+        "import repro_torch\n")[0] + "\nimport repro_torch.serve.planserver\n"
+        "from repro_torch.serve import PlanServer\n"
+        "print(sorted(m for m in sys.modules if m.startswith(("
+        "'repro_torch.models', 'repro_torch.serve.engine'))))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

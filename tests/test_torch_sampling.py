@@ -377,10 +377,15 @@ def test_registries_behave_as_reference():
     ("SpmdTask", 9), ("GenQSGDTrainer", 9)])
 def test_api_names_outside_the_port_raise(name, item):
     """What the port does not carry raises naming its item; the sweep API
-    (item 7), refused until the batched solver was ported, is exported."""
+    (item 7) and PlanServer (item 8), refused until the batched solver and
+    plan serving were ported, are exported."""
     if item == 7:
         from repro_torch.api import sweep
         assert getattr(P, name) is getattr(sweep, name)
+        assert name in P.__all__
+    elif item == 8:
+        from repro_torch.serve import planserver
+        assert getattr(P, name) is getattr(planserver, name)
         assert name in P.__all__
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -190,9 +190,20 @@ def _fused_optimize_is_the_numpy_plan(scn):
             scn.optimize(backend=name)
 
 
+def _optimize_through_a_server(scn):
+    """PlanServer (item 8), refused until its slice, serves
+    ``optimize(server=...)``: the scalar reference's Plan, one request."""
+    from repro_torch.serve import PlanServer
+    scn = dataclasses.replace(scn, step=ConstantRule(1e-3))
+    with PlanServer(backend="numpy", max_batch=2, window_s=0.0) as srv:
+        plan = scn.optimize(server=srv)
+    _equal_plans(scn.optimize(), plan)
+    assert srv.stats()["submitted"] == 1
+
+
 @pytest.mark.parametrize("call,item", [
     pytest.param(_fused_optimize_is_the_numpy_plan, None, id="<lambda>-7"),
-    (lambda s: s.optimize(server=object()), 8),
+    pytest.param(_optimize_through_a_server, None, id="<lambda>-8"),
     (lambda s: s.run(Plan.manual(K0=1, Kn=[1] * N, B=1,
                                  step_rule=ConstantRule(0.1)),
                      backend="spmd"), 9),
