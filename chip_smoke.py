@@ -163,7 +163,34 @@ Phases, each of which fails the script on error:
      layers then prefills a 64-token prompt and decodes 4 tokens on the
      card and on the CPU (plain versions) with the same weights: logits
      within 1e-3 and equal greedy tokens over an f32 cache, logits within
-     3e-2 over the bf16 cache.
+     3e-2 over the bf16 cache;
+ 10. LM training through the federated GenQSGD round (``phase_spmd``):
+     (a) ``loss_train`` and its gradients at qwen3-smoke and gemma3-smoke
+     (window mask) on the card against the same code on the CPU, f32 with
+     TF32 off (loss and every gradient leaf within 1e-5) and under the
+     bf16 view (loss 1e-3, leaves 4e-2 normwise); (b) qwen3-1.7b as
+     published (28 layers, 1,720,574,976 parameters in 13 leaves, random
+     f32 weights from a seed), fl = 2 workers with Kn = (1, 2) on B = 2 x
+     S = 1,024 uniform tokens drawn on the card (two loss chunks), s0 =
+     sn = 7, 2 rounds: each round's workers trained once (``local_train``,
+     bf16 view) and that one set of params aggregated through the f32,
+     int8, int4 and rs_ag wires (``aggregate_apply``), x_hat' bitwise
+     across the wires; counters read around the rounds (K1/K2 26 and K3
+     13 an aggregate, every plain version 0), comm bits exactly rounds x
+     ``round_comm_bits`` = rounds x (fl + 1) messages of the wire's
+     format; then K1/K2/K3 and ``uniform_like`` on the largest leaf
+     against their plain versions and the CPU, ms a round split into
+     local train and aggregate, peak device memory, one more round
+     profiled (busy share); (c) qwen3-smoke, one round aggregated through
+     f32 and elias (s0 = 7, sn = (5, 7)) and bucketed f32 and int8
+     (bucket 4096): elias bitwise f32 (``elias_decode`` twice), bucketed
+     int8 within 1e-6 (K3b), each aggregate within 1 level flip in 10^4
+     of the CPU's from the same trained params; (d)
+     ``Scenario.run(plan, task=SpmdTask(...), backend="spmd",
+     wire="int8")`` for genqsgd and gqfedwavg (comm bits, measured E and
+     T as ``tests/integration/test_spmd_report.py``) and a sampled (S = 1
+     of 2) and faulted run whose FaultTrace and cohort bits equal the
+     CPU's.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -272,6 +299,14 @@ PLAN_WARM_CHECKS = 16
 PLAN_TRAIN_ROUNDS = 50
 PLAN_THREAD_ROWS = 5
 SERVE_ARCH = "qwen3-1.7b"
+#: phase 10: the federated round at full width — fl workers with Kn local
+#: steps (the shorter worker's second step virtual) on B x S tokens, s0 =
+#: sn = SPMD_S_Q, every wire of SPMD_WIRES for SPMD_ROUNDS rounds
+SPMD_ARCH = "qwen3-1.7b"
+SPMD_FL, SPMD_KN, SPMD_B, SPMD_S, SPMD_S_Q = 2, (1, 2), 2, 1024, 7
+SPMD_WIRES = ("f32", "int8", "int4", "rs_ag")
+SPMD_ROUNDS = 2
+SPMD_GAMMA = 0.01
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
 #: K6's check shapes (name, B, C, KV, G, dh, q type, cache type, mask):
@@ -3009,6 +3044,528 @@ def log_device_time(prof, wall: float, n: int, unit: str, top: int = 10):
     return events
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: LM training through the federated round
+# ---------------------------------------------------------------------------
+def spmd_grads(api, cfg, params, batch, dtype):
+    """loss_train and its gradients at ``params`` cast to ``dtype``."""
+    import torch
+    from repro_torch.fed import tree_leaves, tree_unflatten
+    xs = [w.to(dtype).detach().requires_grad_(True)
+          for w in tree_leaves(params)]
+    loss = api.loss_train(tree_unflatten(params, xs), cfg, batch)
+    grads = torch.autograd.grad(loss, xs)
+    return float(loss.detach()), [g.to(torch.float32).cpu() for g in grads]
+
+
+def spmd_loss_checks(dev) -> None:
+    """(a) loss_train and its backward on ``dev`` against the same port
+    code on the CPU at the smoke configs (qwen3: full attention, gemma3:
+    the window mask), f32 with TF32 off and under the bf16 view."""
+    import numpy as np
+    import torch
+    from repro_torch.fed import tree_leaves
+    from repro_torch.models.registry import get_config, model_api
+
+    for arch in ("qwen3-1.7b", "gemma3-4b"):
+        cfg = get_config(arch, smoke=True)
+        api = model_api(cfg)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(1)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65))
+                               .astype(np.int32))
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        p_dev = tree_to(params, dev)
+        for name, dtype, l_tol, g_tol in (
+                ("f32", torch.float32, 1e-5, 1e-5),
+                ("bf16", torch.bfloat16, 1e-3, 4e-2)):
+            l_cpu, g_cpu = spmd_grads(api, cfg, params, batch, dtype)
+            l_dev, g_dev = spmd_grads(api, cfg, p_dev, on_dev, dtype)
+            worst = max(float(torch.linalg.vector_norm(a - b)
+                              / torch.linalg.vector_norm(b))
+                        for a, b in zip(g_dev, g_cpu))
+            if not (abs(l_dev - l_cpu) <= l_tol * abs(l_cpu)
+                    and worst <= g_tol and len(g_dev) == len(
+                        tree_leaves(params))):
+                raise AssertionError(
+                    f"[spmd] {arch} {name}: loss {l_dev} on the device, "
+                    f"{l_cpu} on the CPU; worst gradient leaf {worst:.3g} "
+                    f"normwise (tolerances {l_tol}, {g_tol})")
+            log(f"[spmd] loss_train {arch} smoke {name}: loss {l_dev:.6f} "
+                f"(CPU {l_cpu:.6f}), worst gradient leaf {worst:.3g} "
+                f"normwise of the CPU's ({len(g_dev)} leaves)")
+
+
+def wire_message_bits(s, dim: int, wire: str) -> float:
+    """One whole-message upload's bits at s on a level wire, from the
+    wire's format alone: f32 values, or a 32-bit norm and 8 or 4 bits a
+    coordinate."""
+    return {"f32": 32.0 * dim, "rs_ag": 32.0 * dim,
+            "int8": 32.0 + 8.0 * dim, "int4": 32.0 + 4.0 * dim}[wire]
+
+
+def spmd_kernel_checks(fed, x0, pw, words, i: int, gamma) -> dict:
+    """K1/K2/K3 and the noise on leaf i of the full-width round (x̂'s leaf
+    ``x0``, the workers' trained leaves ``pw``), against their plain
+    versions on the same inputs (row by row, to bound the plain versions'
+    temporaries): -> worst errors."""
+    import torch
+    from repro_torch.fed import uniform_like
+    from repro_torch.fed.runtime import _seed_from
+    from repro_torch.kernels import qsgd as K
+
+    s = fed.sn_tuple()[0]
+    d = torch.stack([(p - x0).reshape(-1) for p in pw]).div_(torch.tensor(
+        gamma, dtype=torch.float32, device=x0.device))
+    u = torch.empty_like(d)
+    for w in range(d.shape[0]):
+        u[w] = uniform_like(d[w], _seed_from(words[w], i))
+    # the noise on the card against the CPU's, across a piece boundary
+    n = d.shape[1]
+    a = max(0, min(n, (1 << 25) + (1 << 20)) - (1 << 21))
+    b = min(n, a + (1 << 21))
+    u_cpu = uniform_like(torch.zeros(b), _seed_from(words[0], i))[a:]
+    if not torch.equal(u[0, a:b].cpu().view(torch.int32),
+                       u_cpu.view(torch.int32)):
+        raise AssertionError("[spmd] uniform_like on the card differs from "
+                             "the CPU")
+    _, norm, inv = K.qsgd_sumsq(d, s)
+    lvl = K.qsgd_quantize(d, u, inv, s)
+    _, norm_p, _ = K.sumsq_plain(d, s)
+    same = all(torch.equal(lvl[r:r + 1], K.quantize_plain(
+        d[r:r + 1], u[r:r + 1], inv[r:r + 1], s)) for r in range(d.shape[0]))
+    x0 = x0.reshape(-1)
+    out = K.qsgd_dequant_apply(x0, lvl[0].contiguous(), norm[:1], s, gamma)
+    out_p = K.dequant_apply_plain(x0, lvl[0], norm[:1], s, gamma)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(norm, norm_p, rtol=1e-6, atol=0)
+    if not same or not torch.equal(out.view(torch.int32),
+                                   out_p.view(torch.int32)):
+        raise AssertionError(f"[spmd] K2 or K3 differs from its plain "
+                             f"version at leaf {i} ({tuple(d.shape)})")
+    log(f"[spmd] leaf {i} {tuple(d.shape)}: K1 norm rel err "
+        f"{float(((norm - norm_p).abs() / norm_p).max()):.3g}, K2 levels "
+        f"and K3 bitwise their plain versions, uniform_like bitwise the "
+        f"CPU's over [{a}, {b})")
+    # their times at this shape (eager: a call moves gigabytes, so the
+    # launch is noise), beside the byte bound, plain and library calls
+    e, rows, lv0 = d.numel(), d.shape[0], lvl[0].contiguous()
+    scale0 = float(norm[0]) / s
+    for name, kern, plain, lib, (bnd, by) in (
+            ("qsgd_sumsq", lambda: K.qsgd_sumsq(d, s),
+             lambda: K.sumsq_plain(d, s),
+             lambda: torch.linalg.vector_norm(d, dim=-1),
+             bound_ms(4 * e + 12 * rows, 2 * e)),
+            ("qsgd_quantize", lambda: K.qsgd_quantize(d, u, inv, s),
+             lambda: K.quantize_plain(d, u, inv, s), None,
+             bound_ms(9 * e + 4 * rows, 6 * e)),
+            ("qsgd_dequant_apply",
+             lambda: K.qsgd_dequant_apply(x0, lv0, norm[:1], s, gamma),
+             lambda: K.dequant_apply_plain(x0, lv0, norm[:1], s, gamma),
+             lambda: torch.add(x0, lv0, alpha=gamma * scale0),
+             bound_ms(9 * n + 4, 3 * n))):
+        ms, pl = eager_ms(kern, reps=5, trials=3), eager_ms(plain, 2, 3)
+        lb = None if lib is None else eager_ms(lib, reps=5, trials=3)
+        log(f"[time] {name} spmd leaf {i} "
+            f"{tuple(d.shape) if name != 'qsgd_dequant_apply' else (n,)}: "
+            f"kernel {ms * 1e3:.2f} us, plain {pl * 1e3:.2f} us, library "
+            f"{'n/a' if lb is None else f'{lb * 1e3:.2f} us'}, bound "
+            f"{bnd * 1e3:.2f} us ({by})")
+    return {"qsgd_sumsq": float((norm - norm_p).abs().max()),
+            "qsgd_dequant_apply": float((out - out_p).abs().max())}
+
+
+def spmd_full_width(dev, cfg) -> dict:
+    """(b) ``cfg`` at full width: fl = 2 workers (Kn = (1, 2)), B x S of
+    uniform tokens on the device, s0 = sn = 7; each round's workers trained
+    once (``local_train``) and that one set of params aggregated through
+    every wire (``aggregate_apply``), x̂' bitwise across wires; launches
+    read around the rounds; comm bits and memory."""
+    import numpy as np
+    import torch
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.fed import (FedConfig, LocalTransport, aggregate_apply,
+                                 local_train, tree_leaves)
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import round_comm_bits
+    from repro_torch.train.trainer import round_keys
+
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    api = model_api(cfg)
+    fl, Kn, wires, rounds, gamma = (SPMD_FL, SPMD_KN, SPMD_WIRES,
+                                    SPMD_ROUNDS, SPMD_GAMMA)
+    feds = {w: FedConfig(n_workers=fl, Kn=Kn, s0=SPMD_S_Q, sn=SPMD_S_Q,
+                         wire=w) for w in wires}
+    transport = LocalTransport(fl)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = api.init_params(cfg, gen)
+    sizes = [t.numel() for t in tree_leaves(x)]
+    dim = sum(sizes)
+    log(f"[spmd] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {dim} parameters in {len(sizes)} leaves, "
+        f"fl = {fl}, Kn = {Kn}, B = {SPMD_B}, S = {SPMD_S}, s0 = sn = "
+        f"{SPMD_S_Q}, wires {wires}")
+    keys = np.random.default_rng(0)
+    bits = {w: 0.0 for w in wires}
+    times = {"train": [], **{w: [] for w in wires}}
+    loss0 = None
+    reset_launches()
+    plain, undo = count_plain_calls()
+    try:
+        for r in range(rounds):
+            batch = uniform_lm_batch(gen, (fl, max(Kn), SPMD_B, SPMD_S),
+                                     cfg.vocab)
+            words = round_keys(keys, fl)
+            sync()
+            t0 = time.perf_counter()
+            trained, losses = [], []
+            for w in transport.workers:
+                p, loss = local_train(api, cfg, feds[wires[0]], x,
+                                      {k: v[w] for k, v in batch.items()},
+                                      Kn[w], gamma)
+                trained.append(p)
+                losses.append(loss)
+            sync()
+            times["train"].append(time.perf_counter() - t0)
+            ref = None
+            for w in wires:
+                t0 = time.perf_counter()
+                x_new, m = aggregate_apply(feds[w], transport, x, trained,
+                                           words[:-1], words[-1], gamma)
+                sync()
+                times[w].append(time.perf_counter() - t0)
+                bits[w] += round_comm_bits(feds[w], dim)
+                if ref is None:
+                    ref = (x_new, float(m["delta_norm"]))
+                    continue
+                for a, b in zip(tree_leaves(ref[0]), tree_leaves(x_new)):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(
+                            f"[spmd] round {r}: wire {w}'s x_hat' differs "
+                            f"from wire {wires[0]}'s")
+                del x_new
+            loss = float(torch.stack(losses).mean())
+            loss0 = loss if loss0 is None else loss0
+            log(f"[spmd] round {r}: loss {loss:.4f}, delta_norm "
+                f"{ref[1]:.4g}, train {times['train'][-1] * 1e3:.1f} ms, "
+                f"aggregate " + ", ".join(f"{w} {times[w][-1] * 1e3:.1f} ms"
+                                          for w in wires)
+                + f"; x_hat' bitwise across {len(wires)} wires")
+            if not np.isfinite(loss):
+                raise AssertionError(f"[spmd] round {r}: loss {loss}")
+            if r == rounds - 1:     # the kernel checks read this round
+                last = (x, trained, words)
+            x = ref[0]
+            del trained, ref
+    finally:
+        undo()
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else 0)
+    L = len(sizes)
+    # the largest leaf's inputs only, the rest freed before the checks
+    x_last, trained, words = last
+    i = max(range(L), key=sizes.__getitem__)
+    inputs = (tree_leaves(x_last)[i], [tree_leaves(p)[i] for p in trained],
+              words, i)
+    del last, x_last, trained
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    worst = (spmd_kernel_checks(feds[wires[0]], *inputs, gamma)
+             if dev.type == "cuda" else {})
+    del inputs
+    n_agg = rounds * len(wires)
+    want = expected_launches(qsgd_sumsq=2 * L * n_agg,
+                             qsgd_quantize=2 * L * n_agg,
+                             qsgd_dequant_apply=L * n_agg)
+    if dev.type == "cuda" and (launches != want or any(plain.values())):
+        raise AssertionError(f"[spmd] launches {launches} != expected "
+                             f"{want}, or a plain version ran: {plain}")
+    for w in wires:
+        per = (fl + 1) * wire_message_bits(SPMD_S_Q, dim, w)
+        if bits[w] != rounds * round_comm_bits(feds[w], dim) or \
+                bits[w] != rounds * per:
+            raise AssertionError(f"[spmd] {w}: comm bits {bits[w]} != "
+                                 f"rounds x {per}")
+    train_ms = 1e3 * statistics.median(times["train"])
+    agg_ms = {w: 1e3 * statistics.median(times[w]) for w in wires}
+    log(f"[spmd] launches {launches} (K1/K2 {2 * L} and K3 {L} an "
+        f"aggregate), no plain version; comm bits a round " + ", ".join(
+            f"{w} {bits[w] / rounds:.6g}" for w in wires))
+    log(f"[spmd] full width: local train {train_ms:.1f} ms a round (both "
+        f"workers, {fl * max(Kn)} forward/backward passes), "
+        f"aggregate " + ", ".join(f"{w} {v:.1f} ms" for w, v in
+                                  agg_ms.items())
+        + "; ms a round " + ", ".join(f"{w} {train_ms + v:.1f}"
+                                      for w, v in agg_ms.items())
+        + f"; peak device memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    busy = None
+    if dev.type == "cuda":
+        busy = profile_spmd_round(api, cfg, feds[wires[1]], transport, x,
+                                  gen, keys, gamma)
+    del x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "train_ms": train_ms, "agg_ms": agg_ms,
+            "peak": peak, "busy": busy, "worst": worst, "dim": dim}
+
+
+def profile_spmd_round(api, cfg, fed, transport, x, gen, keys,
+                       gamma) -> float:
+    """One more full-width round under torch.profiler, its local training
+    and its aggregate (``fed``'s wire) profiled apart: device time by
+    kernel and the device's busy share of each -> the round's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.fed import aggregate_apply, local_train
+    from repro_torch.train.trainer import round_keys
+
+    batch = uniform_lm_batch(gen, (fed.n_workers, fed.K_max, SPMD_B,
+                                   SPMD_S), cfg.vocab)
+    words = round_keys(keys, fed.n_workers)
+    busy = wall = 0.0
+    trained = []
+    for part in ("local train", f"aggregate {fed.wire}"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if not trained:
+                trained = [local_train(api, cfg, fed, x,
+                                       {k: v[w] for k, v in batch.items()},
+                                       fed.Kn[w], gamma)[0]
+                           for w in transport.workers]
+            else:
+                aggregate_apply(fed, transport, x, trained, words[:-1],
+                                words[-1], gamma)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        log(f"[profile] full-width round, {part}:")
+        events = log_device_time(prof, dt, 1, "round", top=12)
+        busy += sum(e.self_device_time_total for e in events) / 1e6
+        wall += dt
+    log(f"[profile] full-width round: device busy {busy / wall * 100:.1f}% "
+        f"of {wall * 1e3:.1f} ms (profiler on)")
+    return busy / wall
+
+
+def spmd_smoke_wires(dev, cfg, gamma: float) -> dict:
+    """(c) ``cfg`` (a smoke config): one round's workers trained once on
+    ``dev``, aggregated through f32 and elias (s0 = 7, sn = (5, 7)) and
+    through bucketed f32 and int8 (bucket 4096): elias bitwise f32 with its
+    stream bits, bucketed int8 within 1e-6 of bucketed f32; launches read
+    around the aggregates; every aggregate on the CPU (plain versions) from
+    the same trained params, level flips at most 1 in 10^4."""
+    import numpy as np
+    import torch
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.fed import (FedConfig, LocalTransport, aggregate_apply,
+                                 local_train, tree_leaves)
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.trainer import round_keys
+
+    dev = torch.device(dev)
+    api = model_api(cfg)
+    fl, Kn = SPMD_FL, SPMD_KN
+    cases = {"f32": dict(wire="f32"), "elias": dict(wire="elias"),
+             "f32 b4096": dict(wire="f32", bucket=BUCKET),
+             "int8 b4096": dict(wire="int8", bucket=BUCKET)}
+    feds = {k: FedConfig(n_workers=fl, Kn=Kn, s0=7, sn=(5, 7), **kw)
+            for k, kw in cases.items()}
+    transport = LocalTransport(fl)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = api.init_params(cfg, gen)
+    batch = uniform_lm_batch(gen, (fl, max(Kn), 4, 64), cfg.vocab)
+    words = round_keys(np.random.default_rng(1), fl)
+    trained = [local_train(api, cfg, feds["f32"], x,
+                           {k: v[w] for k, v in batch.items()}, Kn[w],
+                           gamma)[0] for w in transport.workers]
+    reset_launches()
+    plain, undo = count_plain_calls()
+    try:
+        outs = {k: aggregate_apply(f, transport, x, trained, words[:-1],
+                                   words[-1], gamma)
+                for k, f in feds.items()}
+    finally:
+        undo()
+    launches = read_launches()
+    flat = {k: torch.cat([t.reshape(-1) for t in tree_leaves(o[0])])
+            for k, o in outs.items()}
+    sizes = [t.numel() for t in tree_leaves(x)]
+    L = len(sizes)
+    k3b = sum(1 for n in sizes if -(-n // BUCKET) > 1)
+    # sn = (5, 7): one K1/K2 launch a worker and one for the server a leaf
+    want = expected_launches(qsgd_sumsq=3 * L * 4, qsgd_quantize=3 * L * 4,
+                             qsgd_dequant_apply=2 * L + (L - k3b) * 2,
+                             qsgd_dequant_apply_bucketed=2 * k3b,
+                             elias_decode=2)
+    if dev.type == "cuda" and (launches != want or any(plain.values())):
+        raise AssertionError(f"[spmd] smoke wires: launches {launches} != "
+                             f"{want}, or a plain version ran: {plain}")
+    if not torch.equal(flat["f32"].view(torch.int32),
+                       flat["elias"].view(torch.int32)):
+        raise AssertionError("[spmd] elias wire differs from f32")
+    bdiff = float((flat["int8 b4096"] - flat["f32 b4096"]).abs().max())
+    if bdiff > 1e-6:
+        raise AssertionError(f"[spmd] bucketed int8 {bdiff} from f32")
+    bits = int(outs["elias"][1]["elias_bits"])
+    dim = sum(sizes)
+    if not 0 < bits < 3 * (dim * 15 + 36):
+        raise AssertionError(f"[spmd] elias bits {bits}")
+    # the same aggregates on the CPU (plain versions), same trained params
+    x_cpu = tree_to(x, "cpu")
+    t_cpu = [tree_to(p, "cpu") for p in trained]
+    flips = {}
+    for k, f in feds.items():
+        o, m = aggregate_apply(f, transport, x_cpu, t_cpu, words[:-1],
+                               words[-1], gamma)
+        c = torch.cat([t.reshape(-1) for t in tree_leaves(o)])
+        far = ~torch.isclose(flat[k].cpu(), c, rtol=1e-6, atol=1e-6)
+        flips[k] = int(far.sum())
+        if flips[k] > c.numel() // 10**4 or (
+                "elias_bits" in m and int(m["elias_bits"]) != bits):
+            raise AssertionError(f"[spmd] {k}: {flips[k]} coordinates of "
+                                 f"{c.numel()} differ from the CPU")
+    log(f"[spmd] {cfg.name} ({dim} parameters): elias bitwise f32 "
+        f"({bits} stream bits, = the CPU's), bucketed int8 within {bdiff:.3g} "
+        f"of bucketed f32, launches {launches}; device vs CPU aggregate "
+        f"flips {flips}")
+    return {"launches": launches}
+
+
+def spmd_scenario(dev, cfg) -> dict:
+    """(d) ``Scenario.run(plan, task=SpmdTask(...), backend="spmd",
+    wire="int8")`` at ``cfg`` on ``dev`` for genqsgd and gqfedwavg
+    (``tests/integration/test_spmd_report.py``'s Plans and checks), then a
+    sampled and faulted run on f32 whose cohorts and FaultTrace equal the
+    CPU's; launches read around the three runs."""
+    import dataclasses as dc
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.api import (ConstantRule, EdgeSystem,
+                                 MLProblemConstants, Plan, Scenario,
+                                 SpmdTask)
+    from repro_torch.core.cost import energy_cost, time_cost
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.faults import FaultSpec, edge_faults
+    from repro_torch.models.registry import model_api
+
+    fl, Kn, B, S = SPMD_FL, SPMD_KN, 4, 32
+
+    def batches(d, seed=0):
+        gen = torch.Generator(device=d).manual_seed(seed)
+        while True:
+            yield uniform_lm_batch(gen, (fl, max(Kn), B, S), cfg.vocab)
+
+    def task(d):
+        return SpmdTask(api=model_api(cfg), arch=cfg, batches=batches(d),
+                        device=d)
+    system = EdgeSystem.paper_sec_vii(dim=4096, N=fl)
+    consts = MLProblemConstants(L=0.084, sigma=33.18, G=33.63, f_gap=2.3,
+                                N=fl)
+    plans = {
+        "genqsgd": Plan.manual(K0=3, Kn=Kn, B=B,
+                               step_rule=ConstantRule(0.01), s0=64, sn=16,
+                               dim=4096),
+        "gqfedwavg": Plan.manual(K0=3, Kn=Kn, B=B,
+                                 step_rule=ConstantRule(0.01), s0=64,
+                                 sn=16, dim=4096, family="gqfedwavg",
+                                 agg_weights=(0.7, 0.3), momentum=0.5,
+                                 normalize=True)}
+    fm = edge_faults(straggler_prob=0.5, straggler_factor=4.0,
+                     crash_prob=0.3, crash_rounds=1, corrupt_prob=0.1,
+                     deadline_slack=1.5)
+    wt = (0.8, 1.0)
+    spec = FaultSpec(model=fm, worker_times=wt, deadline=1.5,
+                     deliver_p=tuple(fm.deliver_prob(np.asarray(wt), 1.5)))
+    faulty = dc.replace(Plan.manual(K0=4, Kn=Kn, B=B,
+                                    step_rule=ConstantRule(0.01), s0=64,
+                                    sn=16, dim=4096, faults=spec),
+                        cohort_S=1)
+    reset_launches()
+    plain, undo = count_plain_calls()
+    reps = {}
+    try:
+        for fam, plan in plans.items():
+            scn = Scenario(system=system, consts=consts, T_max=1e5,
+                           C_max=0.25, family=fam)
+            reps[fam] = (scn, scn.run(plan, task=task(dev), backend="spmd",
+                                      wire="int8", log_every=1, device=dev))
+        scn = Scenario(system=system, consts=consts, T_max=1e5, C_max=0.25)
+        reps["faulty"] = (scn, scn.run(faulty, task=task(dev),
+                                       backend="spmd", wire="f32", seed=11,
+                                       log_every=1, device=dev))
+    finally:
+        undo()
+    launches = read_launches()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and (any(plain.values())
+                    or min(launches[k] for k in ("qsgd_sumsq",
+                                                 "qsgd_quantize",
+                                                 "qsgd_dequant_apply")) == 0):
+        raise AssertionError(f"[spmd] scenario launches {launches}, plain "
+                             f"versions {plain}")
+    for fam, plan in plans.items():
+        scn, rep = reps[fam]
+        psys = scn._priced_system
+        ok = (rep.backend == "spmd" and rep.rounds == plan.K0
+              and rep.comm_bits == rep.rounds * plan.round_bits(
+                  dim=rep.model_dim, wire="int8")
+              and rep.measured_E == energy_cost(psys, rep.rounds,
+                                                np.asarray(plan.Kn), plan.B)
+              and rep.measured_T == time_cost(psys, rep.rounds,
+                                              np.asarray(plan.Kn), plan.B)
+              and math.isfinite(rep.history[-1]["loss"]))
+        if not ok:
+            raise AssertionError(f"[spmd] {fam}: {rep.summary()}")
+        log(f"[spmd] Scenario.run(spmd, int8) {fam}: {rep.rounds} rounds, "
+            f"comm bits {rep.comm_bits:.6g} = rounds x round_bits, loss "
+            f"{rep.history[-1]['loss']:.4f}, {rep.wall_time_s:.2f} s")
+    _, rep = reps["faulty"]
+    cpu = Scenario(system=system, consts=consts, T_max=1e5,
+                   C_max=0.25).run(faulty, task=task("cpu"), backend="spmd",
+                                   wire="f32", seed=11, log_every=1,
+                                   device="cpu")
+    if not (rep.fault_trace == cpu.fault_trace
+            and rep.round_bits_trace == cpu.round_bits_trace
+            and rep.comm_bits == cpu.comm_bits
+            and rep.fault_trace.workers_dropped > 0):
+        raise AssertionError("[spmd] sampled and faulted run: the device's "
+                             "traces differ from the CPU's")
+    log(f"[spmd] sampled (S = 1 of 2) and faulted run: "
+        f"{rep.fault_trace.workers_dropped} worker-rounds dropped, "
+        f"round bits {rep.round_bits_trace}, FaultTrace and cohort bits "
+        f"equal the CPU's; launches {launches}")
+    return {"launches": launches}
+
+
+def phase_spmd(dev="cuda", full_cfg=None, smoke_cfg=None) -> dict:
+    """Phase 10: LM training through the federated GenQSGD round —
+    (a) loss and gradients, (b) ``full_cfg`` at full width on four wires,
+    (c) elias and bucketed int8 at ``smoke_cfg``, (d) Scenario.run(spmd).
+    The launches of (b), (c) and (d), each read around its own runs."""
+    from repro_torch.models.registry import get_config
+    full_cfg = full_cfg or get_config(SPMD_ARCH)
+    smoke_cfg = smoke_cfg or get_config(SPMD_ARCH, smoke=True)
+    spmd_loss_checks(dev)
+    full = spmd_full_width(dev, full_cfg)
+    smoke = spmd_smoke_wires(dev, smoke_cfg, SPMD_GAMMA)
+    scen = spmd_scenario(dev, smoke_cfg)
+    launches = {k: full["launches"][k] + smoke["launches"][k]
+                + scen["launches"][k] for k in full["launches"]}
+    return {**full, "launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -3054,19 +3611,20 @@ def main() -> int:
     serve = timed("serve", phase_serve, "cuda", cfg, SERVE_SLOTS,
                   SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
                   dataclasses.replace(cfg, n_layers=2))
+    spmd = timed("spmd", phase_spmd, "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     # launches: each kernel's count on the path that carries it (K1-K3 the
     # quickstart run, K3b the bucketed quickstart, K4/K5 the payload path,
     # elias_decode the bucketed and elias payloads, K6 the serving run),
-    # every path beside it
+    # every path beside it (spmd: the federated LM round's three runs)
     by_path = {"genqsgd": path["launches"], "bucketed": bucketed["launches"],
                "sweep": sweep["launches"], "planserver": plans["launches"],
                "sampled": samp["launches"],
                "gqfedwavg": wavg["launches"], "payload": pay["launches"],
                "payload_buckets": pay_b["launches"],
-               "serve": serve["launches"]}
+               "serve": serve["launches"], "spmd": spmd["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
             "flash_decode": "serve",
             "qsgd_dequant_apply_bucketed": "bucketed",
@@ -3075,6 +3633,8 @@ def main() -> int:
              **bkern["main"], **elias["main"]}
     worst = {**kern["worst"], **fused["worst"], **k6["worst"],
              **bkern["worst"], **elias["worst"]}
+    for name, err in spmd["worst"].items():    # the training path's shapes
+        worst[name] = max(worst[name], err)
     kernels = []
     for name, (ms, plain, lib, (bnd, by)) in timed.items():
         kernels.append({

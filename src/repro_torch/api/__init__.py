@@ -23,12 +23,11 @@ drift ledger.  Step rules and the legacy family mapping live in
 grids through the fused GIA on the card (``device="cpu"`` runs the same
 step program eagerly on the host); ``scenario.optimize(server=srv)``
 routes one request through a :class:`PlanServer` (signature
-micro-batching and a warm-start plan cache over the same engine).  The
-SPMD task and trainer (item 9) are not ported yet: asking this module for
-them raises :class:`NotImplementedError` naming the item in ROADMAP.md,
-Queue 1.
+micro-batching and a warm-start plan cache over the same engine).
+``scenario.run(plan, task=SpmdTask(...), backend="spmd", wire=...)``
+trains an LM across the Plan's fl workers through the federated runtime
+(:class:`GenQSGDTrainer`, :mod:`repro_torch.fed`).
 """
-from .. import not_ported
 from ..core.convergence import MLProblemConstants
 from ..core.cost import EdgeSystem
 from ..core.step_rules import (ConstantRule, DiminishingRule, ExponentialRule,
@@ -42,7 +41,7 @@ from .registries import (FAMILIES, STEP_RULES, family_names, make_step_rule,
                          make_varmap, register_family, register_step_rule)
 from .scenario import Scenario
 from .sweep import SweepReport, sweep_scenarios
-from .tasks import MNISTTask, QuadraticTask
+from .tasks import MNISTTask, QuadraticTask, SpmdTask
 
 __all__ = [
     "Scenario", "Plan", "RunReport", "Objective",
@@ -54,20 +53,20 @@ __all__ = [
     "family_names", "AlgorithmFamily", "GQFedWAvgFamily", "get_family",
     "SamplingModel", "uniform", "importance",
     "FaultModel", "FaultTrace", "edge_faults",
-    "MNISTTask", "QuadraticTask", "PlanServer",
+    "MNISTTask", "QuadraticTask", "SpmdTask",
+    "GenQSGDTrainer", "round_comm_bits", "PlanServer",
 ]
-
-#: the JAX package's api names this package does not carry yet -> item
-_NOT_PORTED = {"SpmdTask": 9, "GenQSGDTrainer": 9, "round_comm_bits": 9}
 
 
 def __getattr__(name):
-    # lazy: the PlanServer lives in repro_torch.serve (Scenario.optimize(
-    # server=...) accepts one)
+    # lazy: the trainer pulls the federated runtime stack, which
+    # optimizer-only consumers never need; the PlanServer lives in
+    # repro_torch.serve (Scenario.optimize(server=...) accepts one)
+    if name in ("GenQSGDTrainer", "round_comm_bits"):
+        from ..train import trainer
+        return getattr(trainer, name)
     if name == "PlanServer":
         from ..serve.planserver import PlanServer
         return PlanServer
-    if name in _NOT_PORTED:
-        raise not_ported(f"repro_torch.api.{name}", _NOT_PORTED[name])
     raise AttributeError(f"module 'repro_torch.api' has no attribute "
                          f"{name!r}")

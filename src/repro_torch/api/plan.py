@@ -7,8 +7,9 @@ against.  The runtime configuration
 (:class:`~repro_torch.core.genqsgd.GenQSGDConfig`) derives from it, so the
 parameters can never disagree between the optimizer and the training run.
 The fields are the JAX package's, so the two packages' Plans compare field
-for field; the SPMD config (``to_fed_config``) is not ported yet
-(ROADMAP.md, Queue 1, item 9).
+for field; ``to_fed_config`` gives the federated LM runtime's
+:class:`~repro_torch.fed.FedConfig`, refusing quantizers its wire cannot
+carry.
 
 A :class:`RunReport` closes the loop: it compares what a training run
 actually moved/cost (communication bits through the
@@ -22,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-from ..compress import RUNTIME_WIRES, make_codec
+from ..compress import RUNTIME_WIRES, elias, make_codec, wire_max_s
 from ..core.genqsgd import GenQSGDConfig
 from ..core.step_rules import StepRule
 from ..opt.problems import Objective
@@ -174,9 +175,9 @@ class Plan:
         d = self.dim if dim is None else int(dim)
         w = self.wire if wire is None else wire
         # an explicit wire naming a runtime aggregation transport prices
-        # what the SPMD runtime actually moves: per-tensor QSGD levels —
-        # rotation is a whole-model-vector preconditioner the sharded
-        # transports cannot carry (the JAX package's to_fed_config).
+        # what the federated runtime actually moves: per-tensor QSGD
+        # levels — rotation is a whole-model-vector preconditioner the
+        # transports cannot carry (to_fed_config).
         # Everything else (wire=None, or a pure pricing format like
         # "packed") uses the Plan's own codec kind, whether passed
         # explicitly or defaulted.
@@ -237,6 +238,50 @@ class Plan:
                              sampling_S=self.cohort_S,
                              sampling_p=self.sampling_p, seed=seed,
                              faults=self.faults)
+
+    def to_fed_config(self, wire: str = "f32", microbatch: int = 1,
+                      aux_weight: float = 0.01,
+                      seed: Optional[int] = None):
+        """The federated runtime's config, cross-validated against the Plan.
+
+        ``wire`` is the aggregation *transport* (how the quantized levels
+        travel); the Plan's ``s0/sn/q_dim`` decide *what* is sent.  Pairs
+        the transport cannot carry — e.g. ``wire="int4"`` with s > 7 — are
+        rejected here, before any training starts.
+
+        The family's aggregation weights and momentum/normalized local
+        updates carry through; the rotation preconditioner does **not** —
+        it acts on the whole flattened model vector, while the runtime
+        quantizes per tensor, so the transports always move plain QSGD
+        levels (the reference backend runs the rotated codec; the
+        RunReport's measured comm-bits are priced at the transport actually
+        used either way).
+        """
+        from ..fed.runtime import FedConfig  # lazy: the runtime stack
+
+        if wire not in RUNTIME_WIRES:
+            raise ValueError(f"wire must be one of {RUNTIME_WIRES}, "
+                             f"got {wire!r}")
+        cap = wire_max_s(wire)
+        if wire == "elias":
+            # elias *pricing* is unbounded in s, but the runtime coder reads
+            # levels from an int8 container like the other level transports
+            cap = elias.MAX_RUNTIME_S
+        for role, s in [("s0", self.s0)] + [(f"sn[{i}]", s)
+                                            for i, s in enumerate(self.sn)]:
+            if s is not None and cap is not None and s > cap:
+                raise ValueError(
+                    f"plan {role}={s} cannot ride the {wire!r} transport "
+                    f"(carries s <= {cap}); re-optimize the Scenario with "
+                    f"quantizers the wire supports or pick a wider wire")
+        return FedConfig(n_workers=self.N, Kn=self.Kn, s0=self.s0,
+                         sn=self.sn, wire=wire, bucket=self.q_dim,
+                         microbatch=microbatch, aux_weight=aux_weight,
+                         agg_weights=self.agg_weights,
+                         momentum=self.momentum, normalize=self.normalize,
+                         sampling_S=self.cohort_S,
+                         sampling_p=self.sampling_p, seed=seed,
+                         faults=self.faults)
 
     def describe(self) -> str:
         sn = set(self.sn)

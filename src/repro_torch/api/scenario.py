@@ -20,11 +20,10 @@ The port carries every algorithm family (``genqsgd``, ``pm``, ``fa``,
 ``edge``), the scalar NumPy solver, the batched (``"torch"``) and fused
 (``"torch-fused"``) device solvers, plan serving
 (``optimize(server=...)``, :class:`~repro_torch.serve.PlanServer`) and the
-reference runtime, and writes the drift ledger of each run when
-:mod:`repro_torch.obs` is on, on a system with or without per-bucket
-norms (``q_dim``); the rest of the JAX package's Scenario (the SPMD
-runtime) raises :class:`NotImplementedError` naming its item in
-ROADMAP.md.
+reference runtime and the federated LM runtime (``backend="spmd"`` on an
+:class:`~repro_torch.api.tasks.SpmdTask`), and writes the drift ledger of
+each run when :mod:`repro_torch.obs` is on, on a system with or without
+per-bucket norms (``q_dim``).
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .. import not_ported, obs as _obs, same_device
+from .. import obs as _obs, same_device
 from ..core.cost import EdgeSystem, energy_cost, time_cost
 from ..core.convergence import MLProblemConstants
 from ..core.genqsgd import GenQSGD, flatten_like
@@ -274,19 +273,28 @@ class Scenario:
     # ------------------------------------------------------------------
     def run(self, plan: Plan, task=None, backend: str = "reference",
             seed: int = 0, max_rounds: Optional[int] = None,
-            eval_every: int = 0, device="cuda") -> RunReport:
+            eval_every: int = 0, wire: str = "f32", log_every: int = 0,
+            device="cuda") -> RunReport:
         """Execute training with exactly the Plan's parameters.
 
         backend="reference" runs Algorithm 1 single-process on a reference
-        task (default: the Sec.-VII MNIST-like task on ``device``); a given
-        task must live on ``device``.  The SPMD runtime is not ported yet.
+        task (default: the Sec.-VII MNIST-like task on ``device``);
+        backend="spmd" runs the federated LM runtime on an
+        :class:`~repro_torch.api.tasks.SpmdTask`, moving the Plan's
+        quantized levels over the ``wire`` transport.  A given task must
+        live on ``device``.
         """
-        if backend != "reference":
-            raise not_ported(f"run backend {backend!r}", 9)
         with _obs.trace.span("scenario.run", backend=backend,
                              family=plan.family, rounds=plan.K0):
-            report = self._run_reference(plan, task, seed, max_rounds,
-                                         eval_every, device)
+            if backend == "reference":
+                report = self._run_reference(plan, task, seed, max_rounds,
+                                             eval_every, device)
+            elif backend == "spmd":
+                report = self._run_spmd(plan, task, seed, max_rounds, wire,
+                                        log_every, device)
+            else:
+                raise ValueError(f"unknown backend {backend!r}; "
+                                 f"expected 'reference' or 'spmd'")
         if _obs.enabled():
             # the drift ledger artifact: a pure function of the report (the
             # report itself is identical with obs off; only this file write
@@ -295,23 +303,26 @@ class Scenario:
                 f"ledger_{plan.family}_{backend}_seed{seed}.jsonl"))
         return report
 
-    def _report(self, plan: Plan, rounds: int, model_dim: int, wall: float,
-                final_metrics: dict, history, cohort_trace=None,
+    def _report(self, plan: Plan, backend: str, rounds: int, model_dim: int,
+                wall: float, final_metrics: dict, history,
+                wire: Optional[str] = None, cohort_trace=None,
                 fault_trace=None) -> RunReport:
-        # priced at the Plan's wire.  Cost-model measurements evaluate on
-        # the *priced* system — the one whose M_s/q_s describe the family's
-        # codec — so measured_E/T are comparable to predicted_E/T within
-        # the same report.
+        # wire=None prices at the Plan's wire (the reference backend has no
+        # transport); the spmd path passes the transport it actually used.
+        # Cost-model measurements evaluate on the *priced* system — the one
+        # whose M_s/q_s describe the family's codec — so measured_E/T are
+        # comparable to predicted_E/T within the same report.
         if cohort_trace:
             # sampled run: realized per-round cohort uploads, summed; the
             # modeled energy is the expected energy at the Plan's pi_n —
             # the same energy_cost(pi=...) the optimizer minimized.
-            trace = tuple(plan.cohort_round_bits(idx, dim=model_dim)
+            trace = tuple(plan.cohort_round_bits(idx, dim=model_dim,
+                                                 wire=wire)
                           for idx in cohort_trace)
             comm = float(sum(trace))
         else:
             trace = ()
-            comm = rounds * plan.round_bits(dim=model_dim)
+            comm = rounds * plan.round_bits(dim=model_dim, wire=wire)
         pi = None
         if plan.cohort_S is not None:
             pi = (np.full(plan.N, float(plan.cohort_S) / plan.N)
@@ -320,7 +331,7 @@ class Scenario:
         sys = self._priced_system
         Kn = np.asarray(plan.Kn)
         return RunReport(
-            plan=plan, backend="reference", rounds=rounds,
+            plan=plan, backend=backend, rounds=rounds,
             model_dim=model_dim, wall_time_s=wall, comm_bits=comm,
             measured_E=energy_cost(sys, rounds, Kn, plan.B, pi=pi),
             measured_T=time_cost(sys, rounds, Kn, plan.B),
@@ -345,6 +356,39 @@ class Scenario:
             torch.cuda.synchronize(xf.device)
         wall = time.time() - t0
         final = task.metrics(xf)
-        return self._report(plan, cfg.K0, alg.dim, wall, final, hist,
-                            cohort_trace=alg.cohort_trace,
+        return self._report(plan, "reference", cfg.K0, alg.dim, wall, final,
+                            hist, cohort_trace=alg.cohort_trace,
                             fault_trace=alg.fault_trace)
+
+    def _run_spmd(self, plan, task, seed, max_rounds, wire, log_every,
+                  device):
+        from ..fed.runtime import tree_leaves
+        from ..train.trainer import GenQSGDTrainer
+        from .tasks import SpmdTask
+
+        if not isinstance(task, SpmdTask):
+            raise ValueError("backend='spmd' needs an SpmdTask (model api, "
+                             "arch config, batches, transport, device)")
+        if not same_device(task.device, device):
+            raise ValueError(f"task lives on {task.device}, the run was asked "
+                             f"for device={device!r}")
+        fed = plan.to_fed_config(wire=wire, seed=seed)
+        trainer = GenQSGDTrainer(task.api, task.arch, fed, task.transport,
+                                 step_rule=plan.step_rule,
+                                 checkpoint_dir=task.checkpoint_dir,
+                                 device=task.device)
+        state = trainer.init(seed)
+        model_dim = sum(int(l.numel()) for l in tree_leaves(state.params))
+        rounds = plan.K0 if max_rounds is None else min(plan.K0, max_rounds)
+        t0 = time.time()
+        state = trainer.run(state, task.batches, seed + 1, n_rounds=rounds,
+                            log_every=log_every or max(1, rounds // 10),
+                            eval_fn=task.eval_fn)
+        if trainer.device.type == "cuda":  # the launches are asynchronous
+            torch.cuda.synchronize(trainer.device)
+        wall = time.time() - t0
+        final = dict(state.history[-1]) if state.history else {}
+        return self._report(plan, "spmd", rounds, model_dim, wall, final,
+                            state.history, wire=wire,
+                            cohort_trace=trainer.cohort_trace,
+                            fault_trace=trainer.fault_trace)

@@ -12,10 +12,14 @@ needs:
 
 Provided: :class:`MNISTTask`, the paper's Sec.-VII 784-128-10 MLP on the
 synthetic MNIST-like set, and :class:`QuadraticTask`, a tiny linear
-regression for tests and smoke runs.  The SPMD task waits for its slice
-(ROADMAP.md, Queue 1, item 9).
+regression for tests and smoke runs.  :class:`SpmdTask` carries what the
+federated LM runtime needs instead (model api, arch config, transport,
+device, batch iterator).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -25,7 +29,7 @@ from ..core.convergence import MLProblemConstants
 from ..data.federated import partition_iid
 from ..models import mlp
 
-__all__ = ["MNISTTask", "QuadraticTask"]
+__all__ = ["MNISTTask", "QuadraticTask", "SpmdTask"]
 
 
 class MNISTTask:
@@ -164,3 +168,20 @@ class QuadraticTask:
         w = params if isinstance(params, torch.Tensor) else params["w"]
         with torch.no_grad():
             return {"err": float(torch.linalg.vector_norm(w - self.true_w))}
+
+
+@dataclasses.dataclass
+class SpmdTask:
+    """What ``Scenario.run(backend="spmd")`` needs beyond the Plan: a model
+    api (``init_params``/``loss_train``), its arch config, an iterator of
+    round batches shaped (fl, K_max, B_local, ...), the transport of the
+    fl workers (None: all of them in this process) and the device the
+    model lives on (the card unless the caller asks for the CPU)."""
+
+    api: object
+    arch: object                 # repro_torch.configs.base.ArchConfig
+    batches: Iterator
+    eval_fn: Optional[Callable] = None
+    checkpoint_dir: Optional[str] = None
+    transport: object = None     # repro_torch.fed.transport (None = local)
+    device: object = "cuda"

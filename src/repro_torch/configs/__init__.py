@@ -1,12 +1,5 @@
-"""Architecture configs of the LM stack (``repro/configs``): the schema and
-the configs the port serves so far (qwen3-1.7b, gemma3-4b)."""
-from .. import not_ported
-from .base import INPUT_SHAPES, ArchConfig, InputShape
+"""Architecture configs of the LM stack (``repro/configs``): the schema, the
+mesh fold and the configs the port carries (qwen3-1.7b, gemma3-4b)."""
+from .base import INPUT_SHAPES, ArchConfig, InputShape, MeshLayout
 
-__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES"]
-
-
-def __getattr__(name):
-    if name == "MeshLayout":
-        raise not_ported("MeshLayout (the SPMD mesh fold)", 9)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "MeshLayout"]

@@ -4,15 +4,16 @@ copy).
 
 Every ported architecture gets one ``<id>.py`` in this package exporting
 ``CONFIG`` (the exact published shape) and ``SMOKE`` (a reduced variant of
-the same family).  ``MeshLayout`` (the (fl, fsdp, tp) mesh fold) belongs to
-the SPMD runtime and is not carried yet (ROADMAP.md, Queue 1, item 9).
+the same family).  ``MeshLayout`` is the (fl, fsdp, tp) mesh fold of the
+JAX package's launcher; the port's runtime reads only its fl axis
+(:mod:`repro_torch.fed`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES"]
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "MeshLayout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,3 +146,20 @@ INPUT_SHAPES = {
     "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """How the physical mesh folds into logical (fl, fsdp, tp) axes.
+
+    fl   — federated-worker axis (GenQSGD replica groups; pods fold in here)
+    fsdp — parameter/batch sharding inside one worker
+    tp   — tensor parallel
+    """
+    fl_sub: int = 1     # how many FL workers per pod (divides the data axis)
+    tp: int = 16
+
+    def logical_shape(self, pods: int, data: int, model: int):
+        assert data % self.fl_sub == 0
+        assert model == self.tp
+        return (pods * self.fl_sub, data // self.fl_sub, model)

@@ -1,2 +1,2 @@
-from .federated import partition_iid, sample_indices
-from .synthetic import mnist_like
+from .federated import partition_iid, round_batches, sample_indices
+from .synthetic import lm_batch, mnist_like, token_batches, uniform_lm_batch

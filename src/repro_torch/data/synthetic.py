@@ -1,16 +1,74 @@
-"""Synthetic data (fully offline, deterministic): ``mnist_like``, the
-paper-repro dataset — a 10-class, 784-dim image-like Gaussian mixture
-(class templates are smoothed random blobs), 60k samples, matching Sec.
-VII's MNIST setup in shape and difficulty class.  NumPy-seeded, the same
-arithmetic as the JAX package's copy, so the arrays are identical.
+"""Synthetic data generators (fully offline, deterministic).
 
-The LM token streams come with the LM stack (ROADMAP.md, Queue 1, item 10).
+* ``mnist_like`` — the paper-repro dataset: a 10-class, 784-dim image-like
+  Gaussian mixture (class templates are smoothed random blobs), 60k
+  samples, matching Sec. VII's MNIST setup in shape and difficulty class.
+  NumPy-seeded, the same arithmetic as the JAX package's copy, so the
+  arrays are identical.
+* ``token_batches`` / ``lm_batch`` — LM token sequences with local
+  statistical structure (a random Markov backbone + noise) so cross
+  entropy falls during a run.  The transition matrix (``_markov_matrix``)
+  is the JAX package's, equal for a seed; each batch's NumPy walk is
+  seeded from a ``torch.Generator`` draw where the JAX package draws from
+  ``jax.random``.  The matrix is vocab^2 float64 (185 GB at qwen3's
+  151,936 tokens), so full-width runs draw uniform tokens on the device
+  instead (``uniform_lm_batch``).
 """
 from __future__ import annotations
 
-import numpy as np
+from typing import Iterator
 
-__all__ = ["mnist_like"]
+import numpy as np
+import torch
+
+__all__ = ["mnist_like", "token_batches", "lm_batch", "uniform_lm_batch"]
+
+
+def _markov_matrix(vocab: int, seed: int, branching: int = 8) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    T = np.full((vocab, vocab), 1e-3)
+    for v in range(vocab):
+        nxt = rng.choice(vocab, size=branching, replace=False)
+        T[v, nxt] += rng.dirichlet(np.ones(branching)) * branching
+    return T / T.sum(axis=1, keepdims=True)
+
+
+def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int,
+             trans: np.ndarray) -> dict:
+    """One (tokens, labels) batch from the Markov backbone: int32 (batch,
+    seq) tensors on the host, the walk seeded by one draw of
+    ``generator``."""
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    rng = np.random.default_rng(seed)
+    toks = np.empty((batch, seq + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, batch)
+    cum = np.cumsum(trans, axis=1)
+    for t in range(seq):
+        u = rng.random(batch)
+        toks[:, t + 1] = (cum[toks[:, t]] > u[:, None]).argmax(axis=1)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+
+def token_batches(seed: int, batch: int, seq: int, vocab: int
+                  ) -> Iterator[dict]:
+    """Endless Markov-backbone batches for ``seed`` (a host generator)."""
+    trans = _markov_matrix(vocab, seed)
+    gen = torch.Generator().manual_seed(seed)
+    while True:
+        yield lm_batch(gen, batch, seq, vocab, trans)
+
+
+def uniform_lm_batch(generator: torch.Generator, shape: tuple,
+                     vocab: int) -> dict:
+    """(tokens, labels) of uniform tokens shaped ``shape + (seq,)`` with
+    ``shape[-1]`` = seq, labels the next tokens, drawn on the generator's
+    device."""
+    *lead, seq = shape
+    toks = torch.randint(0, vocab, (*lead, seq + 1), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+    toks = toks.to(torch.int32)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
 
 def mnist_like(n: int = 60_000, n_classes: int = 10, dim: int = 784,

@@ -6,13 +6,19 @@ block type; each segment's per-layer params are stacked on a leading axis,
 the JAX package's tree exactly (``params["segments"][i]`` holds leaves of
 shape ``(count, ...)``, caches ``{"k", "v", "pos", "idx"}`` likewise), so
 :func:`params_from_jax` is a copy.  Where the reference scans a segment,
-this runs a Python loop over its layers (no remat: nothing here trains).
+this runs a Python loop over its layers.
+
+:func:`loss_train` is the causal-LM cross entropy the federated runtime
+differentiates; its backward is autograd through the same forward (no
+remat: ``jax.checkpoint`` in the reference changes memory, not a number).
+The vocab projection is chunked over ``LOSS_CHUNK`` positions as in the
+reference, so at full width one chunk's f32 logits are 512 x vocab.
 
 Carried block types: ``attn`` (full attention + gated MLP: qwen3, mistral,
 llama3), ``local`` (sliding window) and ``global`` (gemma3).  The others —
-``attn_moe``, ``mamba2``, ``shared_attn``, ``mlstm``, ``slstm`` — and
-``loss_train`` raise :class:`NotImplementedError` (ROADMAP.md, Queue 1,
-item 10).  Decode updates the caches in place and returns them.
+``attn_moe``, ``mamba2``, ``shared_attn``, ``mlstm``, ``slstm`` — raise
+:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).  Decode
+updates the caches in place and returns them.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ __all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
 #: block types that are one attention block + gated MLP; the window adds
 #: one term to the mask and a ring-buffer cursor
 DENSE_TYPES = ("attn", "local", "global")
+LOSS_CHUNK = 512  # sequence chunk for the vocab-projection loss
 
 
 def _check_btype(btype: str):
@@ -111,12 +118,22 @@ def _block_apply(p, h, btype, cfg: ArchConfig, positions):
     return h + y, kv
 
 
+def _unbind(tree, count: int) -> list:
+    """The ``count`` layers of a stacked segment tree, unbound once: the
+    backward is then one stack a leaf, where indexing each layer would add
+    a zeroed copy of the whole stack a layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, count) for k, v in tree.items()}
+        return [{k: parts[k][j] for k in tree} for j in range(count)]
+    return torch.unbind(tree, 0)
+
+
 def forward_hidden(params, cfg: ArchConfig, h, positions):
     """Run the block stack on embeddings h: (B, S, D) -> (h, aux_loss); the
     aux loss is 0 (no carried block type has one)."""
     for (btype, count), seg_p in zip(cfg.segments, params["segments"]):
-        for j in range(count):
-            h, _ = _block_apply(_layer(seg_p, j), h, btype, cfg, positions)
+        for p in _unbind(seg_p, count):
+            h, _ = _block_apply(p, h, btype, cfg, positions)
     h = B.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -141,8 +158,34 @@ def _logits(params, cfg: ArchConfig, h):
     return h @ head
 
 
-def loss_train(*args, **kwargs):
-    raise not_ported("loss_train (LM training)", 10)
+def _ce_sum(h, head, labels):
+    """Summed cross entropy of positions h (..., D) against labels: the
+    logits in h's dtype, then log-softmax in f32, as the reference."""
+    logits = (h @ head).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def loss_train(params, cfg: ArchConfig, batch, aux_weight: float = 0.01):
+    """Causal-LM cross entropy, sequence-chunked vocab projection:
+    ``total / (B * S) + aux_weight * aux`` (a scalar f32 tensor that
+    autograd differentiates)."""
+    h = _embed(params, cfg, batch)
+    pos = _positions(cfg, batch)
+    h, aux = forward_hidden(params, cfg, h, pos)
+    labels = batch["labels"]
+    Bt, S, _ = h.shape
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    n_chunks = max(1, S // LOSS_CHUNK)
+    if S % LOSS_CHUNK == 0 and n_chunks > 1:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n_chunks):
+            sl = slice(i * LOSS_CHUNK, (i + 1) * LOSS_CHUNK)
+            total = total + _ce_sum(h[:, sl], head, labels[:, sl])
+    else:
+        total = _ce_sum(h, head, labels)
+    return total / (Bt * S) + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,11 @@ _SLICE_MODULES = (
     "repro_torch.compress.elias", "repro_torch.compress.backends",
     "repro_torch.opt.structure", "repro_torch.opt.refresh",
     "repro_torch.opt.gp_batched", "repro_torch.opt.gia_fused",
-    "repro_torch.api.sweep", "repro_torch.serve.planserver")
+    "repro_torch.api.sweep", "repro_torch.serve.planserver",
+    "repro_torch.fed", "repro_torch.fed.runtime", "repro_torch.fed.transport",
+    "repro_torch.train", "repro_torch.train.trainer",
+    "repro_torch.train.checkpoint", "repro_torch.data.synthetic",
+    "repro_torch.data.federated")
 
 
 def test_port_imports_without_jax_or_repro():

@@ -241,13 +241,25 @@ def _moe_init():
     PLM.init_params(cfg, torch.Generator())
 
 
+def _moe_loss_train():
+    """loss_train carries the dense stacks (tests/test_torch_train.py); an
+    MoE block on its path still raises naming item 10."""
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.zeros(1, 4, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": tok}
+    assert torch.isfinite(PLM.loss_train(params, cfg, batch))
+    PLM.loss_train(params, dataclasses.replace(cfg, pattern=("attn_moe",)),
+                   batch)
+
+
 @pytest.mark.parametrize("call", [
     lambda: get_config("llama3-405b"),
     lambda: get_config("whisper-tiny", smoke=True),
     _vlm_submit,
     _encdec_engine,
     _moe_init,
-    lambda: PLM.loss_train(),
+    _moe_loss_train,
 ], ids=["arch", "arch-smoke", "vlm-submit", "encdec", "moe-block",
         "loss_train"])
 def test_not_ported_raises(call):

@@ -376,20 +376,20 @@ def test_registries_behave_as_reference():
     ("sweep_scenarios", 7), ("SweepReport", 7), ("PlanServer", 8),
     ("SpmdTask", 9), ("GenQSGDTrainer", 9)])
 def test_api_names_outside_the_port_raise(name, item):
-    """What the port does not carry raises naming its item; the sweep API
-    (item 7) and PlanServer (item 8), refused until the batched solver and
-    plan serving were ported, are exported."""
+    """The JAX package's api names the port once refused are exported: the
+    sweep API (item 7), PlanServer (item 8), and the SPMD task and trainer
+    (item 9), each the object of its module; an unknown name still
+    raises AttributeError."""
     if item == 7:
-        from repro_torch.api import sweep
-        assert getattr(P, name) is getattr(sweep, name)
-        assert name in P.__all__
+        from repro_torch.api import sweep as mod
     elif item == 8:
-        from repro_torch.serve import planserver
-        assert getattr(P, name) is getattr(planserver, name)
-        assert name in P.__all__
+        from repro_torch.serve import planserver as mod
+    elif name == "SpmdTask":
+        from repro_torch.api import tasks as mod
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            getattr(P, name)
+        from repro_torch.train import trainer as mod
+    assert getattr(P, name) is getattr(mod, name)
+    assert name in P.__all__
     with pytest.raises(AttributeError):
         P.no_such_name
 

@@ -201,12 +201,35 @@ def _optimize_through_a_server(scn):
     assert srv.stats()["submitted"] == 1
 
 
+def _run_through_the_spmd_backend(scn):
+    """The SPMD runtime (item 9), refused until its slice, runs a Plan of
+    the N workers: an LM at a tiny width on the CPU, comm bits priced at
+    the transport used; without an SpmdTask it says what it needs."""
+    from repro_torch.api import SpmdTask
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.models.registry import model_api
+    plan = Plan.manual(K0=1, Kn=[1] * N, B=1, step_rule=ConstantRule(0.1),
+                       s0=7, sn=7)
+    with pytest.raises(ValueError, match="needs an SpmdTask"):
+        scn.run(plan, backend="spmd")
+    cfg = ArchConfig(name="tiny", family="dense", citation="test",
+                     n_layers=1, d_model=16, n_heads=2, n_kv=1, d_ff=32,
+                     vocab=32, d_head=8, pattern=("attn",))
+    gen = torch.Generator().manual_seed(0)
+    batches = iter(lambda: uniform_lm_batch(gen, (N, 1, 1, 8), cfg.vocab),
+                   None)
+    rep = scn.run(plan, task=SpmdTask(api=model_api(cfg), arch=cfg,
+                                      batches=batches, device="cpu"),
+                  backend="spmd", wire="int8", device="cpu")
+    assert rep.backend == "spmd" and rep.rounds == 1
+    assert rep.comm_bits == plan.round_bits(dim=rep.model_dim, wire="int8")
+
+
 @pytest.mark.parametrize("call,item", [
     pytest.param(_fused_optimize_is_the_numpy_plan, None, id="<lambda>-7"),
     pytest.param(_optimize_through_a_server, None, id="<lambda>-8"),
-    (lambda s: s.run(Plan.manual(K0=1, Kn=[1] * N, B=1,
-                                 step_rule=ConstantRule(0.1)),
-                     backend="spmd"), 9),
+    pytest.param(_run_through_the_spmd_backend, None, id="<lambda>-9"),
 ])
 def test_entry_points_outside_the_slice_raise(call, item):
     scn = Scenario(EdgeSystem.paper_sec_vii(), MLProblemConstants(**CONSTS),
