@@ -41,9 +41,13 @@ Phases, each of which fails the script on error:
      bitwise its plain version on both branches and bitwise K3 at q >= D;
      K4 over the bucket rows of ten deltas at q in {8, 4095, 4096}, the
      flat int4 payload byte-identical to the plain quantize + flat pack
-     given the kernel's norms.  ``elias_decode`` on streams of
-     ``encode_levels`` at d in {1,000, D} x s in {7, 127} and (10, D) at
-     s = 127: the levels equal the host's plain walk and the input.  Each
+     given the kernel's norms.  ``elias_decode`` (three launches: a
+     parallel split-point decode) on ELIAS_CASES: QSGD streams at d in
+     {1,000, D} x s in {7, 127} and (10, D) at s = 127, streams built to
+     stress it (every level +-127, a run of +1s to the end, d = 1, a gap
+     of 2^20 + 2, patterns), random words and a cut stream: the levels
+     bitwise the host's plain walk (and the input), its malformed-row
+     counter 0 on encoder streams and above 0 on the random words.  Each
      timed beside its bytes bound;
   3. main path: the README quickstart loop on the card (the task on
      ``cuda:0``, the run on the default ``"cuda"``; and the converse for
@@ -257,9 +261,28 @@ BUCKET_K1_SHAPES = ((10 * 25, BUCKET), (25, BUCKET), (10 * 12722, 8))
 K3B_QS = (8, 4095, BUCKET, MAIN_D, 1 << 20)
 K4_BUCKET_QS = (8, 4095, BUCKET)
 BUCKETED_ROUNDS = 400
-#: elias_decode's check streams (d, s), and the messages of the elias
-#: payloads (the host's plain decode walks every stream in Python)
-ELIAS_CASES = ((1000, 7), (1000, 127), (MAIN_D, 7), (MAIN_D, 127))
+#: elias_decode's check streams (kind, shape, s): QSGD levels from the
+#: quantizer at s; the CPU test's adversarial streams: every level +-127 (a
+#: triple a coordinate, triples across every chunk edge; also at 850,000,
+#: whose last word is read by the table block's last, partial warp), a run
+#: of +1s to the end (the closed-form tail) and one in the middle (zero
+#: bits, where walks from offsets 3 apart never meet), d = 1, one level at
+#: d - 1 of 2^20 + 3 (a 2^20 + 2 gap codeword), its PATTERNS at D; eight
+#: rows of random words (malformed: the sequential walk) and a QSGD stream
+#: cut inside the stream (decoded as the walk decodes it).  The host's
+#: plain walk checks each.
+ELIAS_CASES = (("qsgd", (1000,), 7), ("qsgd", (1000,), 127),
+               ("qsgd", (MAIN_D,), 7), ("qsgd", (MAIN_D,), 127),
+               ("qsgd", (10, MAIN_D), 127), ("all-127", (MAIN_D,), None),
+               ("all-127", (850_000,), None), ("ones-tail", (MAIN_D,), None),
+               ("ones-run", (MAIN_D,), None), ("d=1", (2, 1), None),
+               ("long-gap", ((1 << 20) + 3,), None),
+               ("zeros", (MAIN_D,), None), ("dense", (MAIN_D,), None),
+               ("sparse", (MAIN_D,), None), ("ends", (MAIN_D,), None),
+               ("boundary", (MAIN_D,), None), ("random", (8, MAIN_D), None),
+               ("truncated", (MAIN_D,), 127))
+#: elias_decode's timed streams, (D,) at s = 127 the JSON line's row
+ELIAS_TIMED = (((MAIN_D,), 7), ((MAIN_D,), 127), ((10, MAIN_D), 127))
 ELIAS_NS = (1000, (1 << 15) + 1, MAIN_D)
 #: the serving run of phase 8: qwen3-1.7b at full width, 8 slots of 4096
 #: positions, 16 requests of 256-2048 prompt tokens and 32 new tokens
@@ -1076,58 +1099,132 @@ def phase_bucket_kernels(dev) -> dict:
     return {"worst": worst, "main": main}
 
 
-def phase_elias_kernel(dev) -> dict:
-    """elias_decode against its plain version (the same walk on the host)
-    on streams from ``encode_levels`` of QSGD levels at each (d, s) of
-    ELIAS_CASES and of ten rows of D at s = 127: the levels equal the plain
-    decode's and the input; then its time beside its bytes bound and the
-    host walk's time (plain_ms in the JSON line is that host time)."""
+def elias_stream(kind: str, shape: tuple, s, dev, gen, rng):
+    """One check stream of ELIAS_CASES on ``dev`` -> (words, levels or
+    None where the words come from no encoder)."""
+    import numpy as np
     import torch
     from repro_torch.compress import elias as E
     from repro_torch.compress import make_codec
+
+    d = shape[-1]
+    if kind == "random":
+        words = rng.integers(-2**31, 2**31, (*shape[:-1], E.word_capacity(d)))
+        return torch.from_numpy(words.astype(np.int32)).to(dev), None
+    if kind in ("qsgd", "truncated"):
+        y = torch.randn(*shape, generator=gen, device=dev)
+        u = torch.rand(*shape, generator=gen, device=dev)
+        lvl = make_codec(s).encode(y, u)[0]
+    else:
+        lv = np.zeros(shape, np.int8)
+        if kind in ("all-127", "dense"):
+            lv = (rng.choice([-127, 127], shape) if kind == "all-127"
+                  else rng.integers(-127, 128, shape)).astype(np.int8)
+        elif kind in ("ones-tail", "ones-run", "sparse"):
+            idx = rng.choice(d, d // 40, replace=False)
+            lv[..., idx] = rng.integers(1, 8, idx.size) * rng.choice(
+                [-1, 1], idx.size)
+            if kind == "ones-tail":
+                lv[..., d - d // 3:] = 1
+            elif kind == "ones-run":
+                lv[..., d // 3:2 * d // 3] = 1
+        elif kind == "d=1":
+            lv[-1] = -5
+        elif kind in ("long-gap", "ends"):
+            lv[..., -1] = -3
+            if kind == "ends":
+                lv[..., 0] = 7
+        elif kind == "boundary":
+            lv[..., :4] = [127, -127, 1, -1]
+        lvl = torch.from_numpy(lv).to(dev)
+    words, nbits = E.encode_levels(lvl)
+    if kind != "truncated":
+        return words, lvl
+    cut = int(nbits.reshape(-1)[0]) // 2 + 3
+    u32 = words.cpu().numpy().view(np.uint32).copy()
+    u32[..., cut // 32] &= np.uint32((1 << (cut % 32)) - 1)
+    u32[..., cut // 32 + 1:] = 0
+    return torch.from_numpy(u32.view(np.int32)).to(dev), None
+
+
+def phase_elias_kernel(dev) -> dict:
+    """elias_decode against its plain version (the sequential walk on the
+    host) on every stream of ELIAS_CASES: the levels bitwise the plain
+    walk's, an encoder stream's also bitwise its levels, the kernel's
+    malformed-row counter 0 on every encoder stream and above 0 on the
+    random words.  On the card, then: the CUDA launches of one decode
+    (torch.profiler: KERNELS_PER_CALL kernels, each an elias kernel, each
+    once a call), and the device time of each ELIAS_TIMED stream beside its
+    bytes bound and the host walk's time (plain_ms in the JSON line)."""
+    import numpy as np
+    import torch
     from repro_torch.kernels import elias as KE
 
     dev = torch.device(dev)
     card = dev.type == "cuda"
     gen = torch.Generator(device=dev).manual_seed(5)
-    streams = []
-    for shape, s in [((d,), s) for d, s in ELIAS_CASES] + [((10, MAIN_D),
-                                                            127)]:
-        y = torch.randn(*shape, generator=gen, device=dev)
-        u = torch.rand(*shape, generator=gen, device=dev)
-        lvl = make_codec(s).encode(y, u)[0]
-        words, nbits = E.encode_levels(lvl)
+    rng = np.random.default_rng(5)
+    bad = (lambda: KE.malformed_rows(dev)) if card else (lambda: 0)
+    streams = {}
+    for kind, shape, s in ELIAS_CASES:
+        words, lvl = elias_stream(kind, shape, s, dev, gen, rng)
         d = shape[-1]
+        before = bad()
         out = KE.elias_decode(words, d)
-        if card:
-            torch.cuda.synchronize()
+        rows_bad = bad() - before
         t0 = time.perf_counter()
         plain = KE.elias_decode_plain(words.cpu(), d)
         host = time.perf_counter() - t0
-        if not (torch.equal(out.cpu(), plain) and torch.equal(out, lvl)):
-            raise AssertionError(f"elias_decode {shape} s={s}: differs from "
-                                 f"the plain decode or the input")
-        log(f"[elias] decode {shape} s={s}: {int((lvl != 0).sum())} nonzero "
-            f"levels, {int(nbits.sum())} stream bits, equal to the plain "
-            f"decode (host walk {host * 1e3:.1f} ms) and to the input")
-        streams.append((shape, s, words, nbits, host))
+        if not torch.equal(out.cpu(), plain) or (
+                lvl is not None and not torch.equal(out, lvl)):
+            raise AssertionError(f"elias_decode {kind} {shape}: differs from "
+                                 f"the plain walk or the input")
+        if card and (rows_bad != 0 if lvl is not None else
+                     kind == "random" and rows_bad == 0):
+            raise AssertionError(f"elias_decode {kind} {shape}: "
+                                 f"{rows_bad} rows took the sequential walk")
+        log(f"[elias] {kind} {shape} s={s}: {int((out != 0).sum())} nonzero "
+            f"levels, {words.shape[-1]} words, bitwise the plain walk (host "
+            f"{host * 1e3:.1f} ms)" + (" and the input" if lvl is not None
+                                       else "") +
+            f", {rows_bad} rows by the sequential walk")
+        if kind == "qsgd":
+            streams[(shape, s)] = (words, lvl, host)
     if not card:
         return {"worst": {"elias_decode": 0.0}, "main": {}}
+    from repro_torch.compress import elias as E
+    from torch.profiler import ProfilerActivity, profile
+    words = streams[((MAIN_D,), 127)][0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            KE.elias_decode(words, MAIN_D)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    names = {e.key: e.count for e in events}
+    if (len(names) != KE.KERNELS_PER_CALL or
+            any("elias" not in k or c != 5 for k, c in names.items())):
+        raise AssertionError(f"elias_decode's device kernels over 5 calls: "
+                             f"{names}")
+    log(f"[elias] {KE.KERNELS_PER_CALL} CUDA launches a decode: " + ", ".join(
+        f"{demangle(e.key)} {e.self_device_time_total / 5:.2f} us"
+        for e in events) + " (profiler on, eager)")
     main = {}
-    for shape, s, words, nbits, host in streams:
-        if shape not in ((MAIN_D,), (10, MAIN_D)):
-            continue
+    for shape, s in ELIAS_TIMED:
+        words, lvl, host = streams[(shape, s)]
         d = shape[-1]
         kern = (lambda words=words, d=d: KE.elias_decode(words, d))
-        ms = device_ms(kern, reps=5, trials=3)
+        ms = device_ms(kern)
         rows = words.numel() // words.shape[-1]
-        bits = float(nbits.sum())
+        bits = float(E.stream_bits(lvl).sum())
         bnd, by = bound_ms(bits / 8 + rows * d, 0)
         log(f"[time] elias_decode {shape} s={s}: kernel {ms * 1e3:.2f} us "
-            f"({bits / rows / (ms * 1e3):.1f} stream bits/us a row, one "
-            f"thread a row), plain (host walk) {host * 1e3:.2f} ms, library "
-            f"n/a, bound {bnd * 1e3:.3f} us ({by}; a sequential walk is "
-            f"latency-bound)")
+            f"(eager call {eager_ms(kern) * 1e3:.2f} us; {bits / rows:.0f} "
+            f"stream bits a row, {KE.KERNELS_PER_CALL} launches), plain "
+            f"(host walk) {host * 1e3:.2f} ms, library n/a, bound "
+            f"{bnd * 1e3:.3f} us ({by})")
         if shape == (MAIN_D,) and s == 127:
             main["elias_decode"] = (ms, host * 1e3, None, (bnd, by))
     return {"worst": {"elias_decode": 0.0}, "main": main}

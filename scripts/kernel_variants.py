@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Variants of the port's flash decode (K6), QSGD norm (K1), dequant-apply
-(K3), payload encode (K4) and rotate-encode (K5) kernels on one CUDA card:
+(K3), payload encode (K4), rotate-encode (K5) and Elias-omega decode
+(elias_decode) kernels on one CUDA card:
 each variant is the committed source with a textual patch, or an earlier
 design carried here as source text, built with nvcc into
 ``build/variants/`` and timed beside the others in one process, in turns
 (each variant, then each again in reverse order).
 
-    python3 scripts/kernel_variants.py [--kernels k1,k3,k4,k5,k6] [--only NAME,...]
+    python3 scripts/kernel_variants.py [--kernels k1,k3,k4,k5,k6,elias] [--only NAME,...]
 
 K6, at qwen3-1.7b's serving shape (q (8, 8, 2, 128) f32, cache
 (8, 4096, 8, 128) bf16), at gemma3 width (4 kv heads, dh 256) and at
@@ -87,6 +88,21 @@ K5, at (1, 2^15) and (10, 2^15) f32 -> int4 (s = 7):
                  in place, each thread loading its columns from the peers'
                  shared memory and every block the peers' partials, and a
                  third cluster barrier before any block may exit
+elias_decode, on QSGD streams at (101,770,) s in {7, 127} and
+(10, 101,770) s = 127 (each variant bitwise the input levels but
+launch_floor's), each also by kernel under torch.profiler:
+  final          ``csrc/elias.cu`` as committed (three launches)
+  launch_floor   ``final`` with the three kernels' bodies empty, at the
+                 same grids
+  no_extent      ``final`` with every word counted nonzero: the whole
+                 capacity walked, no closed-form tail
+  c64, c256      64- or 256-bit chunks (the window stays 50 bits)
+  s16            16 chunks a segment (800 threads a table block)
+  timeline       ``final`` with ``clock64`` read at a table block's
+                 barriers and around a decode thread's walk, printed in SM
+                 clocks (with the walks and triples of that block)
+  prior          the design it replaced: one block a row, whose thread 0
+                 walks the stream
 
 Also prints the serving instance's registers (ptxas) and how many of its
 blocks (``final``) or clusters (``cluster_merge``) the card holds at once.
@@ -616,6 +632,168 @@ K4_SHAPES = ((10, 101770, 7, True), (10, 1 << 17, 7, True),
              (1, 1 << 22, 127, False))
 
 
+# ---- elias_decode ------------------------------------------------------------
+#: the design the parallel decode replaces (PR 18): one block a row, whose
+#: threads zero the row, then thread 0 walks the stream
+_PRIOR_ELIAS = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace {
+constexpr int kThreads = 256;
+struct BitReader {
+  const uint32_t* __restrict__ w;
+  long long cap, next;
+  unsigned long long buf;
+  int have;
+  __device__ __forceinline__ BitReader(const uint32_t* w_, long long cap_)
+      : w(w_), cap(cap_), next(0), buf(0ull), have(0) {}
+  __device__ __forceinline__ unsigned int peek() {
+    while (have <= 32) {
+      const unsigned long long v =
+          next < cap ? (unsigned long long)__ldg(w + next) : 0ull;
+      buf |= v << have;
+      have += 32;
+      ++next;
+    }
+    return (unsigned int)buf;
+  }
+  __device__ __forceinline__ void skip(int k) {
+    buf >>= k;
+    have -= k;
+  }
+};
+__device__ __forceinline__ unsigned int omega(BitReader& r) {
+  unsigned int n = 1u;
+  for (;;) {
+    const unsigned int win = r.peek();
+    if ((win & 1u) == 0u) {
+      r.skip(1);
+      return n;
+    }
+    const int ln = (int)n + 1;
+    if (ln > 32) return 0u;
+    const unsigned int grp = ln == 32 ? win : (win & ((1u << ln) - 1u));
+    n = __brev(grp) >> (32 - ln);
+    r.skip(ln);
+  }
+}
+__global__ void __launch_bounds__(kThreads)
+elias_decode_kernel(const uint32_t* __restrict__ words, long long cap,
+                    long long d, int8_t* __restrict__ out) {
+  const long long row = blockIdx.x;
+  int8_t* o = out + row * d;
+  for (long long i = threadIdx.x; i < d; i += kThreads) o[i] = 0;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  BitReader r(words + row * cap, cap);
+  long long pos = -1;
+  for (;;) {
+    const unsigned int g = omega(r);
+    if (g == 0u || pos + (long long)g >= d) break;
+    pos += g;
+    const unsigned int m = omega(r);
+    const unsigned int neg = r.peek() & 1u;
+    r.skip(1);
+    o[pos] = (int8_t)(neg ? -(int)m : (int)m);
+  }
+}
+}  // namespace
+extern "C" int elias_prior(const uint32_t* words, long long rows,
+                           long long cap, long long d, int8_t* out,
+                           cudaStream_t st) {
+  elias_decode_kernel<<<(unsigned int)rows, kThreads, 0, st>>>(words, cap, d,
+                                                               out);
+  return (int)cudaGetLastError();
+}
+"""
+#: the first statement of each of the three kernels of csrc/elias.cu
+_ELIAS_BODIES = (
+    "  const long long row = blockIdx.y;\n  if ((int)blockIdx.x < nblk) {",
+    "  extern __shared__ __align__(16) unsigned char smem[];    // kTableSmem",
+    "  __shared__ __align__(16) uint16_t lut[1 << kLutBits];\n"
+    "  __shared__ long long s_tail;")
+#: a timeline of one table block (x = 3, row 0, its first segment) and of
+#: decode block 2's thread 0, in SM clocks, read back by elias_dbg()
+_ELIAS_TIMELINE = [
+    ("__device__ const OmegaLut kOmegaLut = make_omega_lut();",
+     "__device__ const OmegaLut kOmegaLut = make_omega_lut();\n"
+     "__device__ long long g_dbg[32];"),
+    ("  const int t = threadIdx.x;\n  const long long row = blockIdx.y;\n"
+     "  const uint32_t* w = words + row * cap;\n  copy_lut(sm.lut);",
+     "  const int t = threadIdx.x;\n  long long T0 = clock64(), T3 = 0, T4 = 0,"
+     " T5 = 0, T6 = 0;\n  __shared__ int dbg_tri, dbg_max, dbg_items;\n"
+     "  if (t == 0) dbg_tri = dbg_max = 0;\n  const long long row = blockIdx.y;\n"
+     "  const uint32_t* w = words + row * cap;\n  copy_lut(sm.lut);"),
+    ("  if ((long long)blockIdx.x >= nseg) return;\n  for (long long seg",
+     "  long long T1 = clock64();\n"
+     "  if ((long long)blockIdx.x >= nseg) return;\n"
+     "  long long T2 = clock64();\n  for (long long seg"),
+    ("      if (cand) sm.item[atomicAdd(&n_items, 1)] = (uint16_t)t;\n"
+     "      __syncthreads();\n    }",
+     "      if (cand) sm.item[atomicAdd(&n_items, 1)] = (uint16_t)t;\n"
+     "      __syncthreads();\n    }\n    if (seg == blockIdx.x) { T3 = clock64();"
+     " dbg_items = n_items; }"),
+    ("      unsigned int la = 0u;\n      for (;;) {",
+     "      unsigned int la = 0u;\n      int ntr = 0;\n      for (;;) {"),
+    ("        const int how = read_triple<false>(r, sm.lut, 0u, g, m, neg);",
+     "        ++ntr;\n"
+     "        const int how = read_triple<false>(r, sm.lut, 0u, g, m, neg);"),
+    ("      sm.rx[me] = x;",
+     "      if (seg == blockIdx.x) { atomicAdd(&dbg_tri, ntr);"
+     " atomicMax(&dbg_max, ntr); }\n      sm.rx[me] = x;"),
+    ("      sm.link_a[me] = la;\n    }\n    __syncthreads();",
+     "      sm.link_a[me] = la;\n    }\n    __syncthreads();\n"
+     "    if (seg == blockIdx.x) T4 = clock64();"),
+    ("      sm.ta[me] = sat32((unsigned long long)sm.stop_a[me]);\n"
+     "    }\n    __syncthreads();",
+     "      sm.ta[me] = sat32((unsigned long long)sm.stop_a[me]);\n"
+     "    }\n    __syncthreads();\n    if (seg == blockIdx.x) T5 = clock64();"),
+    ("(lo == hi ? lo : -1);\n    }\n    __syncthreads();\n  }",
+     "(lo == hi ? lo : -1);\n    }\n    __syncthreads();\n"
+     "    if (seg == blockIdx.x) T6 = clock64();\n  }\n"
+     "  if (t == 0 && blockIdx.x == 3 && row == 0) {\n"
+     "    g_dbg[0] = T1 - T0; g_dbg[1] = T2 - T1; g_dbg[2] = T3 - T2;\n"
+     "    g_dbg[3] = T4 - T3; g_dbg[4] = T5 - T4; g_dbg[5] = T6 - T5;\n"
+     "    g_dbg[6] = dbg_items; g_dbg[7] = dbg_tri; g_dbg[8] = dbg_max;\n"
+     "    g_dbg[9] = clock64() - T0; }"),
+    ("  if (!s_last) return;\n  __threadfence();\n",
+     "  if (!s_last) return;\n  __threadfence();\n  long long TR = clock64();\n"),
+    ("  if (t == 0) tickets[row] = 0u;\n}",
+     "  if (t == 0) tickets[row] = 0u;\n"
+     "  if (t == 0 && row == 0) { g_dbg[10] = clock64() - TR;"
+     " g_dbg[11] = clock64() - T0; g_dbg[12] = blockIdx.x; }\n}"),
+    ("  const long long stride = (long long)gridDim.x * kDecodeThreads;\n"
+     "  // the first chunk's",
+     "  long long D0 = clock64();\n"
+     "  const long long stride = (long long)gridDim.x * kDecodeThreads;\n"
+     "  // the first chunk's"),
+    ("  __syncthreads();\n  if (bad) {",
+     "  __syncthreads();\n  long long D1 = clock64();\n  if (bad) {"),
+    ("  for (long long i = tail + c1; i < d; i += stride) o[i] = 1;\n}",
+     "  if (threadIdx.x == 0 && blockIdx.x == 2 && row == 0) {"
+     " g_dbg[16] = D1 - D0; g_dbg[17] = clock64() - D1; }\n"
+     "  for (long long i = tail + c1; i < d; i += stride) o[i] = 1;\n}"),
+    ("}  // extern \"C\"",
+     "int elias_dbg(long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, g_dbg, sizeof(g_dbg));\n}\n"
+     "}  // extern \"C\""),
+]
+ELIAS = {"final": [],
+         "launch_floor": [(b, "  return;\n" + b) for b in _ELIAS_BODIES],
+         "no_extent": [("      if (__ldg(w + i) != 0u) last = (int)i;",
+                        "      last = (int)i;")],
+         "c64": [("constexpr int kChunkBits = 128;",
+                  "constexpr int kChunkBits = 64;")],
+         "c256": [("constexpr int kChunkBits = 128;",
+                   "constexpr int kChunkBits = 256;")],
+         "timeline": _ELIAS_TIMELINE,
+         "s16": [("constexpr int kSegChunks = 8;",
+                  "constexpr int kSegChunks = 16;")]}
+
+#: (chunk bits, window, segment chunks) of the variants that change them
+ELIAS_CONSTS = {"elias_c64": (64, 50, 8), "elias_c256": (256, 50, 8),
+                "elias_s16": (128, 50, 16)}
+
 def _patched(src: str, patches) -> str:
     for old, new in patches:
         if old not in src:
@@ -971,9 +1149,97 @@ def run_k1(libs, stream, dev, gen) -> None:
                   ("" if same else "  (norms differ)"), flush=True)
 
 
+def run_elias(libs, stream, dev, gen) -> None:
+    """elias_decode's variants on QSGD streams at (D,) s in {7, 127} and
+    (10, D) s = 127: every variant but launch_floor bitwise the input."""
+    import torch
+    import chip_smoke as S
+    from repro_torch.compress import elias as E
+    from repro_torch.compress import make_codec
+    from repro_torch.kernels import elias as KE
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    names = [n for n in libs if n.startswith("elias_")]
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    tickets = torch.zeros(65535, dtype=torch.int32, device=dev)
+    for n in names:
+        if n == "elias_prior":
+            libs[n].elias_prior.argtypes = [ptr, ll, ll, ll, ptr, ptr]
+            libs[n].elias_prior.restype = i32
+        else:
+            libs[n].elias_decode.argtypes = [ptr, ll, ll, ll, i32, i32, i32,
+                                             ptr, ptr, ptr, ptr, ptr]
+            libs[n].elias_decode.restype = i32
+            libs[n].elias_decode_scratch_bytes.argtypes = [ll, ll]
+            libs[n].elias_decode_scratch_bytes.restype = ll
+    for shape, s in S.ELIAS_TIMED:
+        y = torch.randn(*shape, generator=gen, device=dev)
+        u = torch.rand(*shape, generator=gen, device=dev)
+        lvl = make_codec(s).encode(y, u)[0]
+        words, nbits = E.encode_levels(lvl)
+        rows, cap, d = words.numel() // words.shape[-1], words.shape[-1], \
+            shape[-1]
+        outs = {n: torch.empty(rows, d, dtype=torch.int8, device=dev)
+                for n in names}
+
+        def call(n, o):
+            lib = libs[n]
+            if n == "elias_prior":
+                return lib.elias_prior(words.data_ptr(), rows, cap, d,
+                                       o.data_ptr(), stream())
+            scratch = torch.empty(lib.elias_decode_scratch_bytes(rows, cap),
+                                  dtype=torch.uint8, device=dev)
+            consts = ELIAS_CONSTS.get(n, (KE.CHUNK_BITS, KE.WINDOW,
+                                          KE.SEGMENT_CHUNKS))
+            return lib.elias_decode(words.data_ptr(), rows, cap, d, *consts,
+                                    scratch.data_ptr(), tickets.data_ptr(),
+                                    bad.data_ptr(), o.data_ptr(), stream())
+
+        calls = {n: (lambda n=n: call(n, outs[n])) for n in names}
+        times = _in_turns(calls)
+        same = [n for n in names if n != "elias_launch_floor"
+                and torch.equal(outs[n], lvl.reshape(rows, d))]
+        for n, ts in times.items():
+            print(f"[elias] {str(shape):14s} s={s:<3d} {n:19s} " +
+                  "  ".join(f"{t:9.2f} us" for t in ts) +
+                  (f"  ({int(nbits.sum()) // rows} stream bits a row)"
+                   if n == "elias_final" else ""), flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        for n in names:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    calls[n]()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+            if n == "elias_timeline":
+                buf = (ctypes.c_longlong * 32)()
+                libs[n].elias_dbg(buf)
+                print(f"[elias]   timeline (SM clocks): table block 3 "
+                      f"table copy and block_max {buf[0]}, {buf[1]}, "
+                      f"candidates "
+                      f"{buf[2]}, walks {buf[3]}, links {buf[4]}, chase "
+                      f"{buf[5]}, {buf[6]} walks, {buf[7]} triples, longest"
+                      f" {buf[8]}, block {buf[9]}; last block {buf[12]}: "
+                      f"resolve {buf[10]}, block {buf[11]}; decode block 2"
+                      f" thread 0: loads+lut {buf[16]}, walk {buf[17]}",
+                      flush=True)
+            print(f"[elias]   {n:19s} by kernel (profiler, eager): " +
+                  ", ".join(f"{S.demangle(e.key)} "
+                            f"{e.self_device_time_total / 5:.2f} us"
+                            for e in ev), flush=True)
+        want = [n for n in names if n != "elias_launch_floor"]
+        if same != want:
+            raise AssertionError(f"elias variants differ from the input at "
+                                 f"{shape} s={s}: only {same} equal")
+    if int(bad.item()):
+        raise AssertionError("an elias variant took the sequential walk")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="k1,k3,k4,k5,k6",
+    ap.add_argument("--kernels", default="k1,k3,k4,k5,k6,elias",
                     help="comma-separated kernel groups")
     ap.add_argument("--only", default="", help="comma-separated variants")
     ap.add_argument("--k4-trap", action="store_true",
@@ -990,7 +1256,7 @@ def main() -> int:
     only = set(filter(None, args.only.split(",")))
     pick = (lambda n: not only or n in only)
     src = {name: open(os.path.join(build.CSRC_DIR, f"{name}.cu")).read()
-           for name in ("flash_decode", "qsgd", "fused_encode")}
+           for name in ("flash_decode", "qsgd", "fused_encode", "elias")}
     jobs = []
     if "k6" in groups:
         jobs += [(f"k6_{n}", _patched(src["flash_decode"], p))
@@ -1015,6 +1281,11 @@ def main() -> int:
                  for n, p in K4.items() if pick(n) or n == "final"]
         if pick("prior_k4"):
             jobs.append(("k4_prior_k4", _PRIOR_K4))
+    if "elias" in groups:
+        jobs += [(f"elias_{n}", _patched(src["elias"], p))
+                 for n, p in ELIAS.items() if pick(n)]
+        if pick("prior"):
+            jobs.append(("elias_prior", _PRIOR_ELIAS))
     with ThreadPoolExecutor(len(jobs)) as ex:
         built = dict(zip([name for name, _ in jobs], ex.map(_build, jobs)))
     libs = {name: ctypes.CDLL(so) for name, (so, _) in built.items()}
@@ -1029,6 +1300,8 @@ def main() -> int:
         run_k3(libs, stream, dev, gen)
     if "k5" in groups:
         run_k5(libs, stream, dev, gen)
+    if "elias" in groups:
+        run_elias(libs, stream, dev, gen)
     if "k4" in groups:
         run_k4(libs, built, stream, dev, gen)
         if "k4_no_coop" in libs:

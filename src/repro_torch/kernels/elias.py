@@ -5,12 +5,25 @@
                         with a ``lax.scan`` in jnp
                         (``repro/compress/elias.py`` ``decode_levels``)
 
-The stream is a prefix code, so one thread walks each message's stream
-(one block a row, whose threads first zero the row): the kernel is bound
-by the latency of that chain of dependent steps, not by bytes.  The plain
-version is the same walk in Python on the host, for a CPU tensor only.
-The wrapper runs the kernel for a CUDA tensor — a stream on the card is
-never decoded on the host — and ``LAUNCHES`` counts its launches.
+The stream is a prefix code, so a walk knows where a triple starts only
+once it has read the one before.  The kernel decodes each row in parallel
+over chunks of ``CHUNK_BITS`` bits: walks of every chunk from each of the
+``WINDOW`` offsets where its first triple can start (an encoder triple is
+at most 50 bits), composed into tables of ``SEGMENT_CHUNKS`` chunks in a
+block and resolved along the row by the row's last table block, then one
+walk a chunk from its true entry, writing its levels.  Past a row's last
+nonzero word the walk would decode +1 at every position up to d: that
+tail is written in closed form.  ``KERNELS_PER_CALL`` launches (for each
+65,535 rows), no host synchronisation; the scratch comes from
+``torch.empty``.  A row whose chain leaves the window or meets a codeword
+group longer than 32 bits (words no encoder produced) is finished by the
+sequential walk inside the last launch and counted by
+:func:`malformed_rows`.
+
+The plain version is the sequential walk in Python on the host, for a CPU
+tensor only.  The wrapper runs the kernel for a CUDA tensor — a stream on
+the card is never decoded on the host — and ``LAUNCHES`` counts its calls
+(one a decode, whatever the number of CUDA launches in it).
 """
 from __future__ import annotations
 
@@ -23,23 +36,71 @@ from . import build
 from .qsgd import _on_card
 
 __all__ = ["LAUNCHES", "reset_launches", "elias_decode",
-           "elias_decode_plain"]
+           "elias_decode_plain", "malformed_rows", "CHUNK_BITS", "WINDOW",
+           "SEGMENT_CHUNKS", "KERNELS_PER_CALL"]
 
-#: kernel launches of the wrapper (the plain version never counts)
+#: kernel calls of the wrapper (the plain version never counts)
 LAUNCHES = {"elias_decode": 0}
 
-_MAX_ROWS = 2**31 - 1      # grid.x limit, one block a row
-_PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
-_SIG = [_PTR, _LL, _LL, _LL, _PTR]
+#: bits a chunk; candidate entry offsets a chunk (>= the 50 bits of the
+#: longest encoder triple); chunks a segment, composed in one block.
+#: ``csrc/elias.cu`` holds the same values and refuses others.
+CHUNK_BITS = 128
+WINDOW = 50
+SEGMENT_CHUNKS = 8
+#: CUDA launches of one call (extent, tables with the resolve, decode)
+KERNELS_PER_CALL = 3
+
+_LIMIT = 2**31             # cap and d stay below it
+_PTR, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIG = [_PTR, _LL, _LL, _LL, _I, _I, _I, _PTR, _PTR, _PTR, _PTR]
+_MAX_ROWS = 65535          # rows a launch (grid.y); more go in turns
+_MALFORMED: dict = {}
+_TICKETS: dict = {}
 
 
 def reset_launches() -> None:
     LAUNCHES["elias_decode"] = 0
 
 
+def _malformed(device: torch.device) -> torch.Tensor:
+    """The device's count of rows decoded by the sequential walk (one
+    int64, allocated on first use and kept; the first call on a device
+    must come before any CUDA-graph capture)."""
+    t = _MALFORMED.get(device)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int64, device=device)
+        _MALFORMED[device] = t
+    return t
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The table launch's per-row tickets on ``device``: ``_MAX_ROWS``
+    int32 zeros, allocated once and kept; the last block of a row sets its
+    ticket back to 0 (so a CUDA-graph replay finds them zero too).  Two
+    decodes in flight at once on different streams of one device would
+    share them, which the port never does."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = torch.zeros(_MAX_ROWS, dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def malformed_rows(device) -> int:
+    """Rows the kernel has finished by its sequential walk on ``device``
+    since the process started (0 on every encoder stream).  Reads the
+    device: not for a decode's path."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return int(_malformed(dev).item())
+
+
 def _decode_row(ws: list, d: int, out: np.ndarray) -> None:
-    """The kernel's walk over one row's words (Python ints in [0, 2^32)),
-    writing the nonzero levels into the zeroed ``out``."""
+    """The sequential walk over one row's words (Python ints in [0, 2^32)),
+    writing the nonzero levels into the zeroed ``out``: the kernel's
+    result on every input (a level wraps to int8, as the kernel casts)."""
     cap = len(ws)
     st = [0, 0, 0]          # unread bits, their count, the next word
 
@@ -76,7 +137,8 @@ def _decode_row(ws: list, d: int, out: np.ndarray) -> None:
         m = omega()
         neg = peek() & 1
         skip(1)
-        out[pos] = -m if neg else m
+        v = (-m if neg else m) & 0xFF        # the kernel's int8 cast
+        out[pos] = v - 256 if v > 127 else v
 
 
 def elias_decode_plain(words: torch.Tensor, d: int) -> torch.Tensor:
@@ -105,9 +167,17 @@ def elias_decode(words: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.empty((rows, d), dtype=torch.int8, device=words.device)
     if d == 0 or rows == 0:
         return out.reshape(*lead, d)
-    if rows > _MAX_ROWS:
-        raise ValueError(f"elias_decode: {rows} rows")
+    if cap >= _LIMIT or d >= _LIMIT:
+        raise ValueError(f"elias_decode: cap {cap} and d {d} must stay "
+                         f"below 2^31")
+    lib = build.load("elias")
+    lib.elias_decode_scratch_bytes.argtypes = [_LL, _LL]
+    lib.elias_decode_scratch_bytes.restype = _LL
+    scratch = torch.empty(lib.elias_decode_scratch_bytes(rows, cap),
+                          dtype=torch.uint8, device=words.device)
     build.launch("elias", "elias_decode", _SIG, w2.data_ptr(), rows, cap, d,
-                 out.data_ptr())
+                 CHUNK_BITS, WINDOW, SEGMENT_CHUNKS, scratch.data_ptr(),
+                 _tickets(words.device).data_ptr(),
+                 _malformed(words.device).data_ptr(), out.data_ptr())
     LAUNCHES["elias_decode"] += 1
     return out.reshape(*lead, d)
