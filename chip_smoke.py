@@ -147,13 +147,16 @@ Phases, each of which fails the script on error:
      shape (dh 256, 4 kv heads) under a 1024-token window mask, G in
      {1, 7, 16}, dh 64, ragged C (1000, 777, 3001), C in {1, 5, 9} (fewer
      positions than splits of the cache), one valid token, an all-masked
-     row and a row valid only inside one block's range; each shape called
-     twice, the outputs bitwise equal; q (serving shape) and q, k, v
-     (G = 7 ragged) one element past a 16-byte boundary, bitwise the
-     aligned call.  Then its time at the serving, the
-     gemma3-width and the G = 16 shapes beside its byte bound, its plain
-     version and ``scaled_dot_product_attention``, with the blocks the
-     card keeps resident;
+     row and a row valid only inside one block's range; olmoe-1b-7b's
+     serving shape (16 kv heads, G = 1) and zamba2-2.7b's (32 kv heads,
+     G = 1, dh 80), and at dh 80 bf16 and f32 caches, ragged C, one valid
+     token, an all-masked row, C in {5, 9}, one split, G = 8 and 16; each
+     shape called twice, the outputs bitwise equal; q (serving shape) and
+     q, k, v (G = 7 ragged) one element past a 16-byte boundary, bitwise
+     the aligned call.  Then its time at the serving, the gemma3-width,
+     the G = 16, the olmoe and the zamba2 shapes beside its byte bound,
+     its plain version and ``scaled_dot_product_attention``, with the
+     blocks the card keeps resident;
   9. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
      max_len=4096)`` at full width (28 layers, d_model 2048, vocab
      151,936; f32 weights from ``lm.init_params`` with a seeded generator,
@@ -167,12 +170,23 @@ Phases, each of which fails the script on error:
      layers then prefills a 64-token prompt and decodes 4 tokens on the
      card and on the CPU (plain versions) with the same weights: logits
      within 1e-3 and equal greedy tokens over an f32 cache, logits within
-     3e-2 over the bf16 cache;
+     3e-2 over the bf16 cache.  Then the same protocol for olmoe-1b-7b
+     (16 layers, 64 experts top-8, 6,816,073,728 parameters; K6 16
+     launches a step; the profile adds the router's, the dispatch's, the
+     expert products' and the combine's device time; its 2-layer cut
+     also holds the routing equal over the f32 cache) and zamba2-2.7b
+     (54 layers: 45 mamba2 and 9 shared_attn, dh 80; K6 9 launches a
+     step, the profile adds the mamba2 decodes' device time; its cut is
+     6 layers, 5 mamba2 and 1 shared_attn), each with its peak device
+     memory;
  10. LM training through the federated GenQSGD round (``phase_spmd``):
      (a) ``loss_train`` and its gradients at qwen3-smoke and gemma3-smoke
-     (window mask) on the card against the same code on the CPU, f32 with
-     TF32 off (loss and every gradient leaf within 1e-5) and under the
-     bf16 view (loss 1e-3, leaves 4e-2 normwise); (b) qwen3-1.7b as
+     (window mask), olmoe-smoke and phi35-moe-smoke (the MoE MLP and its
+     aux loss) and zamba2-smoke on the card against the same code on the
+     CPU, f32 with TF32 off (loss and every gradient leaf within 1e-5,
+     5e-5 for zamba2's SSM sums, routing equal) and under the bf16 view
+     (loss 1e-3, leaves 4e-2 normwise; the tokens whose routing moved are
+     printed); (b) qwen3-1.7b as
      published (28 layers, 1,720,574,976 parameters in 13 leaves, random
      f32 weights from a seed), fl = 2 workers with Kn = (1, 2) on B = 2 x
      S = 1,024 uniform tokens drawn on the card (two loss chunks), s0 =
@@ -194,7 +208,10 @@ Phases, each of which fails the script on error:
      wire="int8")`` for genqsgd and gqfedwavg (comm bits, measured E and
      T as ``tests/integration/test_spmd_report.py``) and a sampled (S = 1
      of 2) and faulted run whose FaultTrace and cohort bits equal the
-     CPU's.
+     CPU's; (e) one round at olmoe-smoke and at zamba2-smoke, trained once
+     and aggregated through the f32 and int8 wires (s0 = sn = 7): x̂'
+     bitwise across the wires, K1/K2 2 and K3 1 launches a leaf an
+     aggregate and no plain version, comm bits = ``round_comm_bits``.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -328,8 +345,16 @@ SERVE_ARCH = "qwen3-1.7b"
 SPMD_ARCH = "qwen3-1.7b"
 SPMD_FL, SPMD_KN, SPMD_B, SPMD_S, SPMD_S_Q = 2, (1, 2), 2, 1024, 7
 SPMD_WIRES = ("f32", "int8", "int4", "rs_ag")
+#: (a)'s smoke configs, and (e)'s: one round each through the f32 and
+#: int8 wires
+SPMD_LOSS_ARCHS = ("qwen3-1.7b", "gemma3-4b", "olmoe-1b-7b",
+                   "phi3.5-moe-42b-a6.6b", "zamba2-2.7b")
+SPMD_FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b")
 SPMD_ROUNDS = 2
 SPMD_GAMMA = 0.01
+#: the MoE and hybrid serving paths (phase 9 again), each with the depth
+#: of its card-against-CPU check
+SERVE_FAMILIES = (("olmoe-1b-7b", 2), ("zamba2-2.7b", 6))
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
 #: K6's check shapes (name, B, C, KV, G, dh, q type, cache type, mask):
@@ -354,10 +379,24 @@ K6_SHAPES = (
     ("one split", 8, 4096, 8, 2, 128, "f32", "bf16", "one-split"),
     ("one split ragged dh=64", 4, 3001, 4, 4, 64, "bf16", "bf16",
      "one-split"),
+    # olmoe-1b-7b's serving shape (16 kv heads, G = 1, dh 128) and
+    # zamba2-2.7b's (32 kv heads, G = 1, dh 80: rows of 10 or 20 16-byte
+    # vectors read by 16 or 32 lanes, tiles of 24 or 12 positions)
+    ("olmoe", 8, 4096, 16, 1, 128, "f32", "bf16", "prefix"),
+    ("zamba2 dh=80", 8, 4096, 32, 1, 80, "f32", "bf16", "prefix"),
+    ("dh=80 f32 cache ragged", 3, 1000, 4, 1, 80, "f32", "f32", "prefix"),
+    ("dh=80 bf16 q ragged", 2, 777, 8, 1, 80, "bf16", "bf16", "prefix"),
+    ("dh=80 one valid token", 4, 777, 8, 1, 80, "f32", "bf16", "one"),
+    ("dh=80 all-masked row", 4, 1000, 8, 1, 80, "f32", "f32", "none-row0"),
+    ("dh=80 C=5", 2, 5, 8, 1, 80, "f32", "bf16", "prefix"),
+    ("dh=80 C=9 f32", 3, 9, 4, 1, 80, "f32", "f32", "prefix"),
+    ("dh=80 one split", 4, 3001, 4, 1, 80, "f32", "bf16", "one-split"),
+    ("dh=80 G=8 q in smem", 2, 1000, 4, 8, 80, "f32", "bf16", "prefix"),
+    ("dh=80 G=16 f32", 2, 300, 2, 16, 80, "f32", "f32", "none-row0"),
 )
-#: K6's timed shapes: the serving shape (the JSON line's row) and two
-#: other widths
-K6_TIMED = ("serving", "gemma3 width", "G=16")
+#: K6's timed shapes: the serving shape (the JSON line's row), two other
+#: widths and the two new serving paths' shapes
+K6_TIMED = ("serving", "gemma3 width", "G=16", "olmoe", "zamba2 dh=80")
 K6_TOL = 1e-5
 K6_WINDOW = 1024
 REPLACES = {
@@ -2787,20 +2826,22 @@ def k6_sdpa(q, k, v, valid):
                 "sdpa on kv heads expanded G times, q in the cache's type")
 
 
-def k6_blocks_per_sm(q, k) -> int:
-    """Blocks of K6's instantiation for these types and widths that one SM
-    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def k6_query(what: str, q, k) -> int:
+    """A number the K6 library reports of its instantiation for these types
+    and widths: ``flash_decode_blocks_per_sm`` (the blocks one SM holds at
+    once, cudaOccupancyMaxActiveBlocksPerMultiprocessor) or
+    ``flash_decode_tile`` (the positions of a stage tile)."""
     import ctypes
     import torch
     from repro_torch.kernels import build
-    fn = build.load("flash_decode").flash_decode_blocks_per_sm
+    fn = getattr(build.load("flash_decode"), what)
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     err = fn(q.shape[2], q.shape[3], int(q.dtype == torch.bfloat16),
              int(k.dtype == torch.bfloat16), ctypes.byref(n))
     if err != 0:
-        raise RuntimeError(f"flash_decode_blocks_per_sm: CUDA error {err}")
+        raise RuntimeError(f"{what}: CUDA error {err}")
     return n.value
 
 
@@ -2847,8 +2888,18 @@ def phase_flash_decode(dev) -> dict:
                                        rtol=rtol, atol=K6_TOL)
         if name == "serving":
             worst = err
+        tile = ""
+        if dev.type == "cuda":
+            # the CPU model's tile (the tests' merge model and the
+            # one-split mask use it) must be the kernel's own
+            t = k6_query("flash_decode_tile", q, k)
+            model = FD.stage_positions(dh, k.element_size())
+            if t != model:
+                raise AssertionError(f"K6 {name}: the library's tile {t} != "
+                                     f"stage_positions {model}")
+            tile = f", tile {t} = stage_positions"
         log(f"[k6] {name}: B={B} C={C} KV={KV} G={G} dh={dh} q {qt} cache "
-            f"{kvt} mask {mask}: max abs err {err:.3g}, repeat bitwise")
+            f"{kvt} mask {mask}: max abs err {err:.3g}, repeat bitwise{tile}")
     log("[k6] flash decode agrees with its plain version at every shape")
     if dev.type != "cuda":
         return {"worst": {"flash_decode": worst}, "main": {}}
@@ -2899,8 +2950,8 @@ def phase_flash_decode(dev) -> dict:
 
         ms, pl, lb = device_ms(kern), device_ms(plain), device_ms(lib)
         blocks = FD.SPLITS * KV * B
-        slots = k6_blocks_per_sm(q, k) * torch.cuda.get_device_properties(
-            0).multi_processor_count
+        slots = k6_query("flash_decode_blocks_per_sm", q, k) \
+            * torch.cuda.get_device_properties(0).multi_processor_count
         log(f"[time] flash_decode {name} B={B} C={C} KV={KV} G={G} dh={dh} "
             f"q {qt} cache {kvt}: kernel {ms * 1e3:.2f} us (eager call "
             f"{eager_ms(kern) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, "
@@ -2930,6 +2981,68 @@ def tree_leaves(tree):
     return [tree]
 
 
+def param_tree_count(cfg) -> int:
+    """The parameters of ``lm.init_params(cfg)``, counted from the config
+    alone: ``ArchConfig.param_count`` plus the final norm and the qk norms,
+    with mamba2's conv, A_log, D, dt_bias and out_norm added and zamba2's
+    shared block counted once (param_count counts it at every
+    ``shared_attn`` layer)."""
+    D, dh = cfg.d_model, cfg.d_head
+    qk = 2 * dh * cfg.qk_norm
+    n = cfg.param_count() + D
+    for t in cfg.layer_types:
+        if t == "mamba2":
+            di = cfg.ssm_expand * D
+            H, N = di // cfg.ssm_head_dim, cfg.ssm_state
+            n += (cfg.ssm_conv + 1) * (di + 2 * N) + 3 * H + di - D
+        elif t == "shared_attn":
+            n -= (D * cfg.n_heads * dh + 2 * D * cfg.n_kv * dh
+                  + cfg.n_heads * dh * D + 3 * D * cfg.d_ff)
+        else:
+            n += qk
+    if "shared_attn" in cfg.layer_types:
+        n += (D * cfg.n_heads * dh + 2 * D * cfg.n_kv * dh
+              + cfg.n_heads * dh * D + 3 * D * cfg.d_ff + qk)
+    return n
+
+
+def k6_layers(cfg) -> int:
+    """K6 launches a decode step: one per attention layer (every layer but
+    mamba2's)."""
+    return sum(c for t, c in cfg.segments if t != "mamba2")
+
+
+def span_device_us(prof, label: str) -> float:
+    """Device time (us) of the kernels launched inside the ``label``
+    ranges: each range's host event sums its children's kernels."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == label
+               and not str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def n_moe_layers(cfg) -> int:
+    """MoE layers (``attn_moe``): routings a forward or decode step."""
+    return sum(c for t, c in cfg.segments if t == "attn_moe")
+
+
+def routing_diff(r_card, r_cpu, want: int, what: str):
+    """The routings recorded on the card and on the CPU: ``want`` of each,
+    of equal shapes -> (token-layers routed differently, token-layers)."""
+    if not len(r_card) == len(r_cpu) == want or any(
+            x.shape != y.shape for x, y in zip(r_card, r_cpu)):
+        raise AssertionError(
+            f"{what}: {len(r_card)} routings recorded on the card, "
+            f"{len(r_cpu)} on the CPU, want {want}; shapes "
+            f"{[tuple(x.shape) for x in r_card]} vs "
+            f"{[tuple(y.shape) for y in r_cpu]}")
+    moved = sum(int((x.cpu() != y.cpu()).any(-1).sum())
+                for x, y in zip(r_card, r_cpu))
+    n_tok = sum(x.shape[0] for x in r_cpu)
+    if want and n_tok == 0:
+        raise AssertionError(f"{what}: the routings hold no token")
+    return moved, n_tok
+
+
 def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
                 prompt: tuple, new_tokens: int, check_cfg) -> dict:
     """Phase 8: ``ServeEngine(...).run(requests)`` for ``cfg`` on ``dev``,
@@ -2938,19 +3051,21 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
     import numpy as np
     import torch
     from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
     from repro_torch.serve import Request, ServeEngine
 
     dev = torch.device(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     sync()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    # ArchConfig.param_count leaves out the final norm and the qk norms
-    norms = cfg.d_model + cfg.n_layers * 2 * cfg.d_head * cfg.qk_norm
-    if n_params != cfg.param_count() + norms:
+    if n_params != param_tree_count(cfg):
         raise AssertionError(f"{n_params} parameters, the config counts "
-                             f"{cfg.param_count()} + {norms} of norms")
+                             f"{param_tree_count(cfg)}")
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab}, {n_params} parameters (f32) built in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2971,14 +3086,15 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     st = eng.stats
-    n_attn = sum(c for t, c in cfg.segments)
+    n_attn = k6_layers(cfg)
     want = dict.fromkeys(launches, 0)
     want["flash_decode"] = st["decode_steps"] * n_attn
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want} "
                              f"({st['decode_steps']} decode steps x "
-                             f"{n_attn} layers x 1 a call)")
+                             f"{n_attn} attention layers x 1 a call)")
     if launches["flash_decode"] == 0:
         raise AssertionError("flash_decode never launched on the serving "
                              "path")
@@ -2999,9 +3115,14 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
         f"decode {ms_step:.3f} ms per step, {tokens} tokens in {wall:.3f} s "
         f"= {tokens / wall:.1f} tokens/s (decode alone "
         f"{st['decode_steps'] * slots / st['decode_s']:.1f} tokens/s at "
-        f"{slots} slots)")
+        f"{slots} slots); K6 {n_attn} launches a step; peak device memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    busy = None
     if dev.type == "cuda":
-        profile_decode(eng, cfg, rng, slots)
+        busy = profile_decode(eng, cfg, rng, slots)
+    del eng, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     # the same model cut in depth, on the card against the CPU
     cparams = lm.init_params(check_cfg,
@@ -3011,19 +3132,25 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
     toks = torch.as_tensor(rng.integers(0, check_cfg.vocab, (1, 64)))
     for cache, tol in ((torch.float32, 1e-3), (torch.bfloat16, 3e-2)):
         logits = {name: [] for name, _, _ in sides}
+        routes = {name: [] for name, _, _ in sides}
         caches = {}
         for name, where, p in sides:
-            lg, caches[name] = lm.prefill(p, check_cfg,
-                                          {"tokens": toks.to(where)},
-                                          cache_len=128, cache_dtype=cache)
+            with MOE.recording_routes() as got:
+                lg, caches[name] = lm.prefill(p, check_cfg,
+                                              {"tokens": toks.to(where)},
+                                              cache_len=128,
+                                              cache_dtype=cache)
+            routes[name] += got
             logits[name].append(lg.float().cpu())
         for i in range(4):
             # both sides decode the card's greedy token
             tok = logits["card"][-1].argmax(-1)[:, None]
             pos = torch.full((1, 1), 64 + i)
             for name, where, p in sides:
-                lg, _ = lm.decode_step(p, check_cfg, tok.to(where),
-                                       caches[name], pos.to(where))
+                with MOE.recording_routes() as got:
+                    lg, _ = lm.decode_step(p, check_cfg, tok.to(where),
+                                           caches[name], pos.to(where))
+                routes[name] += got
                 logits[name].append(lg.float().cpu())
         a, b = torch.stack(logits["card"]), torch.stack(logits["cpu"])
         if not bool(torch.isfinite(a).all()):
@@ -3033,19 +3160,31 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
         if cache == torch.float32 and not same:
             raise AssertionError("greedy tokens differ between the card and "
                                  "the CPU")
+        # one routing a MoE layer at the prefill and at each of 4 steps
+        moved, n_tok = routing_diff(routes["card"], routes["cpu"],
+                                    5 * n_moe_layers(check_cfg),
+                                    f"[serve] {check_cfg.name}")
+        if cache == torch.float32 and moved:
+            raise AssertionError(f"routing differs between the card and the "
+                                 f"CPU at {moved} of {n_tok} tokens")
         log(f"[serve] {check_cfg.n_layers}-layer {check_cfg.name} ({cache} "
             f"cache): card vs CPU logits max abs diff "
             f"{float((a - b).abs().max()):.3g} (tolerance {tol}, |logits| <= "
             f"{float(b.abs().max()):.3g}), greedy tokens "
-            f"{'equal' if same else 'differ'}")
+            f"{'equal' if same else 'differ'}"
+            + (f", routing differs at {moved} of {n_tok} token-layers"
+               if n_tok else ""))
     return {"launches": launches, "ms_step": ms_step,
-            "ms_prefill": ms_prefill}
+            "ms_prefill": ms_prefill, "tokens_s": tokens / wall,
+            "peak": peak, "busy": busy}
 
 
-def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> None:
+def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> float:
     """Where a decode step's time goes: ``slots`` requests in flight, then
-    torch.profiler over ``steps`` steps: K6's share of device time, the
-    device's busy share of the wall time."""
+    torch.profiler over ``steps`` steps: K6's share of device time, under
+    MoE the router's, the dispatch's, the expert products' and the
+    combine's, for a hybrid the mamba2 layers', and the device's busy
+    share of the wall time (returned)."""
     import numpy as np
     import torch
     from repro_torch.serve import Request
@@ -3056,9 +3195,15 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> None:
             np.int32), max_new_tokens=steps + 5))
     for _ in range(3):
         eng.step()
+    # the package's profiler ranges (models/moe.py, models/lm.py)
+    labels = []
+    if "attn_moe" in cfg.layer_types:
+        labels = ["moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
+    if "mamba2" in cfg.layer_types:
+        labels = ["mamba2.decode"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -3066,22 +3211,36 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10) -> None:
         wall = time.perf_counter() - t0
     while eng.step():
         pass
-    events = log_device_time(prof, wall, steps, "step")
-    # K6 is one kernel, launched once a layer a step, with no combine
-    n_attn = sum(c for t, c in cfg.segments)
+    events = log_device_time(prof, wall, steps, "step", exclude=labels)
+    busy = sum(e.self_device_time_total for e in events)
+    for label in labels:
+        t = span_device_us(prof, label)
+        if t <= 0:
+            raise AssertionError(f"the profile shows no device time inside "
+                                 f"the range {label}")
+        log(f"[profile] {label}"
+            f"{' (the expert products)' if label == 'moe.experts' else ''}: "
+            f"{t / steps / 1e3:.3f} ms/step = "
+            f"{t / max(busy, 1e-9) * 100:.1f}% of device time")
+    # K6 is one kernel, launched once an attention layer a step, with no
+    # combine
+    n_attn = k6_layers(cfg)
     k6 = [e for e in events if "flash_decode" in e.key]
     if len(k6) != 1 or k6[0].count != n_attn * steps:
         raise AssertionError(f"K6 kernels in the decode profile: "
                              f"{[(e.key, e.count) for e in k6]}, want one "
                              f"name launched {n_attn} times a step")
+    # K6 merges its splits in-kernel: no kernel named "combine" runs on
+    # any decode path (the ranges' own rows, moe.combine among them, are
+    # left out of ``events``)
     if any("combine" in e.key for e in events):
         raise AssertionError("a combine kernel ran on the decode path")
-    busy = sum(e.self_device_time_total for e in events)
     t6 = k6[0].self_device_time_total
     log(f"[profile] flash_decode {t6 / steps / 1e3:.3f} ms/step = "
         f"{t6 / max(busy, 1e-9) * 100:.1f}% of device time, "
         f"{k6[0].count / steps:.0f} launches/step of one kernel "
         f"({k6[0].key[:60]}), {t6 / k6[0].count:.2f} us a launch")
+    return busy / 1e6 / wall
 
 
 def profile_rounds(alg, x, draws, gamma, rounds: int = 20) -> None:
@@ -3121,14 +3280,16 @@ def profile_run(alg, x0, gen) -> None:
     log_device_time(prof, wall, alg.cfg.K0, "round", top=12)
 
 
-def log_device_time(prof, wall: float, n: int, unit: str, top: int = 10):
+def log_device_time(prof, wall: float, n: int, unit: str, top: int = 10,
+                    exclude=()):
     """Log the device's busy share of ``wall`` over ``n`` units (rounds,
     steps) and the busiest kernels; -> the device-side events."""
     # device-side events only: an operator's own row also carries the time
-    # of the kernels it launched, so summing both would count them twice
+    # of the kernels it launched, so summing both would count them twice;
+    # so would a record_function range's device-side row (``exclude``)
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and e.key not in exclude]
     busy_us = sum(e.self_device_time_total for e in events)
     log(f"[profile] {n} {unit}s: wall {wall / n * 1e3:.3f} ms/{unit} "
         f"(profiler on), device busy {busy_us / n / 1e3:.3f} ms/{unit} = "
@@ -3159,13 +3320,17 @@ def spmd_grads(api, cfg, params, batch, dtype):
 def spmd_loss_checks(dev) -> None:
     """(a) loss_train and its backward on ``dev`` against the same port
     code on the CPU at the smoke configs (qwen3: full attention, gemma3:
-    the window mask), f32 with TF32 off and under the bf16 view."""
+    the window mask, olmoe and phi3.5-moe: the MoE MLP and its aux loss,
+    zamba2: mamba2 and the shared block), f32 with TF32 off and under the
+    bf16 view; the tokens whose routing differs between the two are
+    counted (none at f32)."""
     import numpy as np
     import torch
     from repro_torch.fed import tree_leaves
+    from repro_torch.models import moe as MOE
     from repro_torch.models.registry import get_config, model_api
 
-    for arch in ("qwen3-1.7b", "gemma3-4b"):
+    for arch in SPMD_LOSS_ARCHS:
         cfg = get_config(arch, smoke=True)
         api = model_api(cfg)
         params = api.init_params(cfg, torch.Generator().manual_seed(0))
@@ -3175,24 +3340,42 @@ def spmd_loss_checks(dev) -> None:
         batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
         on_dev = {k: v.to(dev) for k, v in batch.items()}
         p_dev = tree_to(params, dev)
+        # the SSM's gradients are sums of terms of both signs over every
+        # token (A_log's over every position pair): at f32 zamba2-smoke's
+        # leaves lie up to 1.7e-5 from a float64 evaluation on the CPU
+        # alone (tests/test_torch_arch.py), so f32 holds a hybrid's at 5e-5
+        f32_tol = 5e-5 if "mamba2" in cfg.layer_types else 1e-5
         for name, dtype, l_tol, g_tol in (
-                ("f32", torch.float32, 1e-5, 1e-5),
+                ("f32", torch.float32, 1e-5, f32_tol),
                 ("bf16", torch.bfloat16, 1e-3, 4e-2)):
-            l_cpu, g_cpu = spmd_grads(api, cfg, params, batch, dtype)
-            l_dev, g_dev = spmd_grads(api, cfg, p_dev, on_dev, dtype)
-            worst = max(float(torch.linalg.vector_norm(a - b)
-                              / torch.linalg.vector_norm(b))
-                        for a, b in zip(g_dev, g_cpu))
+            with MOE.recording_routes() as r_cpu:
+                l_cpu, g_cpu = spmd_grads(api, cfg, params, batch, dtype)
+            with MOE.recording_routes() as r_dev:
+                l_dev, g_dev = spmd_grads(api, cfg, p_dev, on_dev, dtype)
+            # one routing a MoE layer (one forward; the backward routes
+            # nothing)
+            moved, n_tok = routing_diff(r_dev, r_cpu, n_moe_layers(cfg),
+                                        f"[spmd] {arch} {name}")
+            rel = [float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b))
+                   for a, b in zip(g_dev, g_cpu)]
+            worst = max(rel)
             if not (abs(l_dev - l_cpu) <= l_tol * abs(l_cpu)
                     and worst <= g_tol and len(g_dev) == len(
-                        tree_leaves(params))):
+                        tree_leaves(params))
+                    and (moved == 0 or dtype != torch.float32)):
                 raise AssertionError(
                     f"[spmd] {arch} {name}: loss {l_dev} on the device, "
-                    f"{l_cpu} on the CPU; worst gradient leaf {worst:.3g} "
-                    f"normwise (tolerances {l_tol}, {g_tol})")
+                    f"{l_cpu} on the CPU; worst gradient leaf "
+                    f"{rel.index(worst)} {worst:.3g} normwise (tolerances "
+                    f"{l_tol}, {g_tol}); routing "
+                    f"differs at {moved} of {n_tok} token-layers")
             log(f"[spmd] loss_train {arch} smoke {name}: loss {l_dev:.6f} "
                 f"(CPU {l_cpu:.6f}), worst gradient leaf {worst:.3g} "
-                f"normwise of the CPU's ({len(g_dev)} leaves)")
+                f"normwise of the CPU's (leaf {rel.index(worst)} of "
+                f"{len(g_dev)}, tolerance {g_tol})"
+                + (f"; routing differs at {moved} of {n_tok} token-layers"
+                   if n_tok else ""))
 
 
 def wire_message_bits(s, dim: int, wire: str) -> float:
@@ -3646,11 +3829,89 @@ def spmd_scenario(dev, cfg) -> dict:
     return {"launches": launches}
 
 
+def spmd_family_rounds(dev, archs=SPMD_FAMILY_ARCHS) -> dict:
+    """(e) one round at each smoke config of ``archs`` (MoE and hybrid):
+    fl = 2 workers (Kn = (1, 2)) trained once on ``dev`` (the router's aux
+    term in the loss), that one set of params aggregated through the f32
+    and the int8 wire at s0 = sn = 7: x̂' bitwise across the wires, K1/K2
+    two launches and K3 one a leaf an aggregate and no plain version, comm
+    bits exactly ``round_comm_bits`` = (fl + 1) messages of the wire's
+    format."""
+    import numpy as np
+    import torch
+    from repro_torch.data import uniform_lm_batch
+    from repro_torch.fed import (FedConfig, LocalTransport, aggregate_apply,
+                                 local_train, tree_leaves)
+    from repro_torch.models.registry import get_config, model_api
+    from repro_torch.train import round_comm_bits
+    from repro_torch.train.trainer import round_keys
+
+    dev = torch.device(dev)
+    fl, Kn, wires = SPMD_FL, SPMD_KN, ("f32", "int8")
+    total = None
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        api = model_api(cfg)
+        feds = {w: FedConfig(n_workers=fl, Kn=Kn, s0=SPMD_S_Q, sn=SPMD_S_Q,
+                             wire=w) for w in wires}
+        transport = LocalTransport(fl)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = api.init_params(cfg, gen)
+        batch = uniform_lm_batch(gen, (fl, max(Kn), 4, 64), cfg.vocab)
+        words = round_keys(np.random.default_rng(2), fl)
+        trained, losses = [], []
+        for w in transport.workers:
+            p, loss = local_train(api, cfg, feds["f32"], x,
+                                  {k: v[w] for k, v in batch.items()},
+                                  Kn[w], SPMD_GAMMA)
+            trained.append(p)
+            losses.append(float(loss))
+        sizes = [t.numel() for t in tree_leaves(x)]
+        L, dim = len(sizes), sum(sizes)
+        reset_launches()
+        plain, undo = count_plain_calls()
+        try:
+            outs = {w: aggregate_apply(f, transport, x, trained, words[:-1],
+                                       words[-1], SPMD_GAMMA)
+                    for w, f in feds.items()}
+        finally:
+            undo()
+        launches = read_launches()
+        want = expected_launches(qsgd_sumsq=2 * L * len(wires),
+                                 qsgd_quantize=2 * L * len(wires),
+                                 qsgd_dequant_apply=L * len(wires))
+        if dev.type == "cuda" and (launches != want or any(plain.values())):
+            raise AssertionError(f"[spmd] {arch}: launches {launches} != "
+                                 f"{want}, or a plain version ran: {plain}")
+        a, b = (torch.cat([t.reshape(-1) for t in tree_leaves(outs[w][0])])
+                for w in wires)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)) or \
+                not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[spmd] {arch}: x_hat' differs across the "
+                                 f"wires, or is not finite")
+        for w in wires:
+            per = (fl + 1) * wire_message_bits(SPMD_S_Q, dim, w)
+            if round_comm_bits(feds[w], dim) != per:
+                raise AssertionError(f"[spmd] {arch} {w}: comm bits "
+                                     f"{round_comm_bits(feds[w], dim)} != "
+                                     f"{per}")
+        log(f"[spmd] {cfg.name} ({dim} parameters in {L} leaves): one round "
+            f"(losses {losses}), x_hat' bitwise across {wires}, launches "
+            f"{launches}{', no plain version' if dev.type == 'cuda' else ''}"
+            f"; comm bits a round "
+            + ", ".join(f"{w} {round_comm_bits(feds[w], dim):.6g}"
+                        for w in wires))
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    return {"launches": total}
+
+
 def phase_spmd(dev="cuda", full_cfg=None, smoke_cfg=None) -> dict:
     """Phase 10: LM training through the federated GenQSGD round —
     (a) loss and gradients, (b) ``full_cfg`` at full width on four wires,
-    (c) elias and bucketed int8 at ``smoke_cfg``, (d) Scenario.run(spmd).
-    The launches of (b), (c) and (d), each read around its own runs."""
+    (c) elias and bucketed int8 at ``smoke_cfg``, (d) Scenario.run(spmd),
+    (e) one round at the MoE and hybrid smoke configs.  The launches of
+    (b) to (e), each read around its own runs."""
     from repro_torch.models.registry import get_config
     full_cfg = full_cfg or get_config(SPMD_ARCH)
     smoke_cfg = smoke_cfg or get_config(SPMD_ARCH, smoke=True)
@@ -3658,8 +3919,10 @@ def phase_spmd(dev="cuda", full_cfg=None, smoke_cfg=None) -> dict:
     full = spmd_full_width(dev, full_cfg)
     smoke = spmd_smoke_wires(dev, smoke_cfg, SPMD_GAMMA)
     scen = spmd_scenario(dev, smoke_cfg)
+    fam = spmd_family_rounds(dev)
     launches = {k: full["launches"][k] + smoke["launches"][k]
-                + scen["launches"][k] for k in full["launches"]}
+                + scen["launches"][k] + fam["launches"][k]
+                for k in full["launches"]}
     return {**full, "launches": launches}
 
 
@@ -3708,6 +3971,13 @@ def main() -> int:
     serve = timed("serve", phase_serve, "cuda", cfg, SERVE_SLOTS,
                   SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
                   dataclasses.replace(cfg, n_layers=2))
+    fam_serve = {}
+    for arch, depth in SERVE_FAMILIES:
+        fcfg = get_config(arch)
+        fam_serve[arch] = timed(
+            f"serve {arch}", phase_serve, "cuda", fcfg, SERVE_SLOTS,
+            SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+            dataclasses.replace(fcfg, n_layers=depth))
     spmd = timed("spmd", phase_spmd, "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3721,7 +3991,9 @@ def main() -> int:
                "sampled": samp["launches"],
                "gqfedwavg": wavg["launches"], "payload": pay["launches"],
                "payload_buckets": pay_b["launches"],
-               "serve": serve["launches"], "spmd": spmd["launches"]}
+               "serve": serve["launches"],
+               **{f"serve {a}": v["launches"] for a, v in fam_serve.items()},
+               "spmd": spmd["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
             "flash_decode": "serve",
             "qsgd_dequant_apply_bucketed": "bucketed",

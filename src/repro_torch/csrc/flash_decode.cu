@@ -24,27 +24,27 @@
 // each (b, kv) over kSplits blocks:
 //
 //   * grid (kSplits, KV, B).  Block `rank` of (b, kv) takes positions
-//     [rank * per, (rank + 1) * per) clipped to C; the wrapper computes
-//     `per` (ceil(C / kSplits) rounded up to the stage tile) and the kernel
-//     checks it.  A block whose range is empty contributes m = -1e30,
+//     [rank * per, (rank + 1) * per) clipped to C, `per` = ceil(C /
+//     kSplits) rounded up to the stage tile.  A block whose range is empty contributes m = -1e30,
 //     l = 0, acc = 0.
 //   * K and V reach shared memory by Hopper's tensor copies
 //     (cp.async.bulk.tensor, the TMA): one producer thread copies a stage
-//     tile (T positions x dh of K, and of V: 8 KB) with one instruction for
-//     K and one for V, described by a tensor map of the cache as the 4-d
-//     tensor (dh, KV, C, B) that the wrapper's call encodes on the host; its
-//     completion is counted in bytes on the stage's "full" mbarrier, into a
-//     ring of kStages stages.  Rows past C arrive as zeros and are never
-//     read from memory.  (scripts/kernel_variants.py times one
-//     cp.async.bulk a row against this.)
+//     tile (T positions x dh of K, and of V: 8 KB, 7.5 at dh 80) with one
+//     instruction for K and one for V, described by a tensor map of the
+//     cache as the 4-d tensor (dh, KV, C, B) that the wrapper's call encodes
+//     on the host; its completion is counted in bytes on the stage's "full"
+//     mbarrier, into a ring of kStages stages.  Rows past C arrive as zeros
+//     and are never read from memory.  (scripts/kernel_variants.py times
+//     one cp.async.bulk a row against this.)
 //   * Four consumer warps take every tile, each a quarter of its rows, and
 //     release the stage on its "empty" mbarrier.  A row is read by a group
 //     of LPR lanes, two 16-byte vectors a lane where G <= 4 (sub and
-//     sub + LPR: no bank conflicts).  The G partial sums q . k of a row are
-//     reduced and scattered over the group (about G shuffles, not
-//     G log2(LPR)), so each lane ends up owning one head: one IEEE
-//     division and one expf a row and lane, where an all-reduce would
-//     repeat them for every head in every lane.  The owners keep the
+//     sub + LPR: no bank conflicts); a row of 10 or 20 vectors (dh 80) by
+//     16 or 32 lanes, one vector a lane, the rest idle.  The G partial
+//     sums q . k of a row are reduced and scattered over the group (about
+//     G shuffles, not G log2(LPR)), so each lane ends up owning one head:
+//     one IEEE division and one expf a row and lane, where an all-reduce
+//     would repeat them for every head in every lane.  The owners keep the
 //     running (m, l) of their heads; p and the rescale factor reach the
 //     other lanes by shuffles, and the accumulators are rescaled only when
 //     some head's running max of the warp grew (exp(0) = 1 otherwise, so
@@ -177,15 +177,28 @@ __device__ __forceinline__ void unpack(const uint4& r, float* x,
 // the query heads a kv head; heads g >= G get q = 0 and are never written.
 template <typename TQ, typename TKV, int DH, int GB> struct Geo {
   static constexpr int kRow = DH * (int)sizeof(TKV);     // bytes a cache row
-  static constexpr int T = kStageBytes / (2 * kRow);     // positions a tile
   static constexpr int EPV = 16 / (int)sizeof(TKV);      // elements a vector
-  // a row is read by a group of LPR lanes, NV 16-byte vectors a lane (lane
-  // sub holds vectors sub, sub + LPR, ...: E elements): two a lane while
-  // the GB x E accumulator stays small, so a group spans fewer lanes
-  static constexpr int NV = (GB <= 4 || kRow > 512) ? 2 : 1;
-  static constexpr int LPR = kRow / (16 * NV);
+  static constexpr int VPR = kRow / 16;                  // vectors a row
+  // a row of a power of two of vectors (dh 64, 128, 256) is read by a group
+  // of LPR lanes, NV 16-byte vectors a lane (lane sub holds vectors sub,
+  // sub + LPR, ...: E elements): two a lane while the GB x E accumulator
+  // stays small, so a group spans fewer lanes.  Any other row (dh 80: 10
+  // vectors in bf16, 20 in f32) is read one vector a lane by the next power
+  // of two of lanes, and the lanes sub >= VPR hold no vector: their partial
+  // sums are zeros and they write nothing (kPad), so the reduce-scatter's
+  // xor shuffles still span a power of two
+  static constexpr bool kPow2 = (VPR & (VPR - 1)) == 0;
+  static constexpr int NV = !kPow2 ? 1 : (GB <= 4 || kRow > 512) ? 2 : 1;
+  static constexpr int LPR = kPow2 ? VPR / NV : VPR <= 8 ? 8
+                             : VPR <= 16 ? 16 : 32;
+  static constexpr bool kPad = NV * LPR != VPR;
   static constexpr int E = NV * EPV;
   static constexpr int NGR = 32 / LPR;                   // rows a warp load
+  // positions a tile: the rows of K and V an 8 KB stage holds, cut to a
+  // whole number of the consumer warps' loads (a cut only where kPad: 25 ->
+  // 24 at dh 80 over bf16; 12 over f32 stays)
+  static constexpr int T = kStageBytes / (2 * kRow) / (kConsumerWarps * NGR)
+                           * (kConsumerWarps * NGR);
   static constexpr int U = T / (kConsumerWarps * NGR);   // rows a group a tile
   // after the reduce-scatter of the GB partial sums a lane owns HPL heads,
   // and a head's owner lanes are SPAN apart
@@ -208,7 +221,27 @@ template <typename TQ, typename TKV, int DH, int GB> struct Geo {
   static_assert(T % (kConsumerWarps * NGR) == 0 && U >= 1, "rows");
   static_assert(E % 2 == 0 && GB <= 16, "two partial sums a lane");
   static_assert(HC >= 1 && kEpi >= HC && GB % HC == 0, "epilogue chunks");
+  static_assert(!kPad || (NV == 1 && VPR <= LPR), "padded rows");
+  static_assert(T * kRow % 128 == 0, "V's tile on a 128-byte boundary");
+
+  // whether lane sub of a group holds vector i of a row
+  static __device__ __forceinline__ bool has(int sub, int i) {
+    return !kPad || sub + i * LPR < VPR;
+  }
 };
+
+// Vector i of lane sub's share of a row (the row's vectors at p), as f32
+// into x[i * EPV ..]; zeros where the lane holds no such vector (kPad).
+template <typename L, typename TKV>
+__device__ __forceinline__ void load_vec(const uint4* p, int sub, int i,
+                                         float* x) {
+  if (L::has(sub, i)) {
+    unpack(p[sub + i * L::LPR], x + i * L::EPV, TKV());
+  } else {
+#pragma unroll
+    for (int j = 0; j < L::EPV; ++j) x[i * L::EPV + j] = 0.f;
+  }
+}
 
 // q . k partial sums of GB heads over the LPR lanes of a group, reduced and
 // scattered: on return d[j], j < HPL, is the full sum of head sub / SPAN
@@ -315,8 +348,9 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
 #pragma unroll
           for (int j = 0; j < EPV; ++j)
             qv[g][i * EPV + j] =
-                g < G ? to_f32(q[(bh * G + g) * DH + (sub + i * LPR) * EPV + j])
-                      : 0.f;
+                g < G && L::has(sub, i)
+                    ? to_f32(q[(bh * G + g) * DH + (sub + i * LPR) * EPV + j])
+                    : 0.f;
         }
       }
     }
@@ -361,7 +395,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
         const uint4* kp = reinterpret_cast<const uint4*>(kt + row_of(u) * DH);
         float kf[E];
 #pragma unroll
-        for (int i = 0; i < NV; ++i) unpack(kp[sub + i * LPR], kf + i * EPV, TKV());
+        for (int i = 0; i < NV; ++i) load_vec<L, TKV>(kp, sub, i, kf);
         float d[GB];
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
@@ -372,8 +406,9 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
             for (int j = 0; j < EPV; j += 2) {
               float q0, q1;
               if constexpr (L::kQShared) {
-                q0 = sq[g * DH + (sub + i * LPR) * EPV + j];
-                q1 = sq[g * DH + (sub + i * LPR) * EPV + j + 1];
+                const bool on = L::has(sub, i);
+                q0 = on ? sq[g * DH + (sub + i * LPR) * EPV + j] : 0.f;
+                q1 = on ? sq[g * DH + (sub + i * LPR) * EPV + j + 1] : 0.f;
               } else {
                 q0 = qv[g][i * EPV + j];
                 q1 = qv[g][i * EPV + j + 1];
@@ -430,7 +465,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
         const uint4* vp = reinterpret_cast<const uint4*>(vt + row_of(u) * DH);
         float vf[E];
 #pragma unroll
-        for (int i = 0; i < NV; ++i) unpack(vp[sub + i * LPR], vf + i * EPV, TKV());
+        for (int i = 0; i < NV; ++i) load_vec<L, TKV>(vp, sub, i, vf);
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           const float p = __shfl_sync(0xffffffffu, sc[u][g % HPL], owner(g));
@@ -489,6 +524,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tmk,
         if (grp == 0) {
 #pragma unroll
           for (int i = 0; i < NV; ++i) {
+            if (!L::has(sub, i)) continue;
 #pragma unroll
             for (int j = 0; j < EPV; ++j)
               mine[2 * HC + gl * DH + (sub + i * LPR) * EPV + j] =
@@ -653,6 +689,7 @@ template <typename TQ, typename TKV, typename F>
 int by_dh(int dh, int G, F&& f) {
   switch (dh) {
     case 64: return by_g<TQ, TKV, 64>(G, f);
+    case 80: return by_g<TQ, TKV, 80>(G, f);
     case 128: return by_g<TQ, TKV, 128>(G, f);
     case 256: return by_g<TQ, TKV, 256>(G, f);
     default: return (int)cudaErrorInvalidValue;
@@ -674,16 +711,17 @@ extern "C" {
 
 // K6: q (B, KV, G, dh), k/v (B, C, KV, dh) contiguous and 16-byte aligned,
 // f32 (0) or bf16 (1) each; valid (B, C) uint8; out (B, KV, G, dh) in q's
-// type.  per = positions a block: ceil(C / 8) rounded up to the
-// instantiation's tile of 8192 / (2 * dh * sizeof(cache element))
-// positions.  ws (ws_floats) and tickets (n_tickets, zeros) are the
-// caller's, kept from call to call: B * KV * 8 * (2 * GB + GB * dh) floats
+// type.  A block takes per = ceil(C / 8) positions rounded up to the
+// instantiation's tile T (Geo: 8192 / (2 * dh * sizeof(cache element))
+// positions, cut to a whole number of warp loads at dh 80;
+// flash_decode_tile reports it).  ws (ws_floats) and tickets (n_tickets,
+// zeros) are the caller's, kept from call to call: B * KV * 8 * (2 * GB + GB * dh) floats
 // and B * KV tickets, GB the least power of two >= G; the kernel leaves the
-// tickets zero.  G <= 16, dh in {64, 128, 256}; anything else returns
+// tickets zero.  G <= 16, dh in {64, 80, 128, 256}; anything else returns
 // cudaErrorInvalidValue, a launch the card refuses its error.
 int flash_decode(const void* q, const void* k, const void* v,
                  const uint8_t* valid, int B, int KV, int G, int dh,
-                 long long C, long long per, int q_bf16, int kv_bf16,
+                 long long C, int q_bf16, int kv_bf16,
                  float* ws, long long ws_floats, unsigned int* tickets,
                  long long n_tickets, void* out, cudaStream_t st) {
   if (B < 1 || KV < 1 || C < 1) return (int)cudaErrorInvalidValue;
@@ -692,11 +730,9 @@ int flash_decode(const void* q, const void* k, const void* v,
     using TQ = typename I::TQ;
     using TKV = typename I::TKV;
     using L = Geo<TQ, TKV, I::DH, I::GB>;
-    // the wrapper's geometry must be the kernel's: ceil(C / kSplits)
-    // rounded up to the tile
-    const long long want =
+    // a block's positions: ceil(C / kSplits) rounded up to the tile
+    const long long per =
         ((C + kSplits - 1) / kSplits + L::T - 1) / L::T * L::T;
-    if (per != want) return (int)cudaErrorInvalidValue;
     if (ws_floats < (long long)B * KV * kSplits * L::kState ||
         n_tickets < (long long)B * KV)
       return (int)cudaErrorInvalidValue;
@@ -711,6 +747,16 @@ int flash_decode(const void* q, const void* k, const void* v,
            L::kSmem, st>>>(tmk, tmv, static_cast<const TQ*>(q), valid, KV, G,
                            C, per, ws, tickets, static_cast<TQ*>(out));
     return (int)cudaGetLastError();
+  });
+}
+
+// The positions a stage tile of K6's instantiation for (q type, cache
+// type, dh, G) holds (Geo::T), into *tile; returns the CUDA error.
+int flash_decode_tile(int G, int dh, int q_bf16, int kv_bf16, int* tile) {
+  return dispatch(q_bf16, kv_bf16, dh, G, [&](auto inst) -> int {
+    using I = decltype(inst);
+    *tile = Geo<typename I::TQ, typename I::TKV, I::DH, I::GB>::T;
+    return (int)cudaSuccess;
   });
 }
 

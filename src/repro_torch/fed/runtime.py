@@ -527,7 +527,14 @@ def make_round_fn(api, cfg: ArchConfig, fed: FedConfig, transport=None):
     ``batch`` leaves are (fl, K_max, B, ...) (each process reads its own
     workers' rows); ``wseeds`` (fl, W) / ``sseeds`` (W,) the workers' and
     the server's key words.  ``transport`` defaults to all fl workers in
-    this process (:class:`~repro_torch.fed.transport.LocalTransport`)."""
+    this process (:class:`~repro_torch.fed.transport.LocalTransport`).
+
+    The reference's ``mesh``, ``fsdp_weights`` and ``moe_tp_only`` only
+    choose a GSPMD layout for the params and gradients (the expert axis
+    over ``tp`` for MoE); a worker here runs on one card, so they have no
+    counterpart, as ``repro/models/shardctx.py`` has none.  MoE and hybrid
+    models train through the same round: ``loss_train`` adds the routers'
+    aux loss at ``fed.aux_weight``."""
     transport = LocalTransport(fed.n_workers) if transport is None \
         else transport
     if transport.n_workers != fed.n_workers:

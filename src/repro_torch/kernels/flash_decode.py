@@ -26,7 +26,9 @@ and tickets are kept per device (:func:`_scratch`): a call allocates only
 its output.  It takes any C (the TPU kernel asked for a multiple of 512).
 
 q is f32 or bf16, k and v f32 or bf16 (one type for both), G <= 16 and
-dh in {64, 128, 256}, which covers every config of the JAX package.  The
+dh in {64, 80, 128, 256}: the head widths of the configs the port serves
+(80 is zamba2-2.7b's; its rows of 10 or 20 16-byte vectors are read by 16
+or 32 lanes, the rest idle).  The
 wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors — only because the tensors lie on the CPU; a CUDA tensor never
 falls back, and a launch the card refuses raises.  ``LAUNCHES`` counts
@@ -54,13 +56,13 @@ SPLITS = 8
 #: bytes of K plus V a stage of the kernel's ring holds
 _STAGE_BYTES = 8192
 MAX_G = 16
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of the C entry point in csrc/flash_decode.cu, stream
 #: excluded
-_SIG = ([_PTR] * 4 + [_INT] * 4 + [_LL, _LL, _INT, _INT]
+_SIG = ([_PTR] * 4 + [_INT] * 4 + [_LL, _INT, _INT]
         + [_PTR, _LL, _PTR, _LL, _PTR])
 #: per device: (workspace f32, tickets int32), kept and grown, never shrunk
 _SCRATCH: dict = {}
@@ -72,14 +74,18 @@ def reset_launches() -> None:
 
 
 def stage_positions(dh: int, itemsize: int) -> int:
-    """Cache positions a stage tile of the kernel holds: 8 KB of K and V
-    (16 at dh 128 over a bf16 cache)."""
-    return _STAGE_BYTES // (2 * dh * itemsize)
-
-
-def _per(C: int, tile: int) -> int:
-    per = -(-C // SPLITS)
-    return -(-per // tile) * tile
+    """Cache positions a stage tile of the kernel holds: the rows of K and V
+    that 8 KB hold, cut to a whole number of its consumer warps' loads (16
+    at dh 128 over a bf16 cache; 24 at dh 80, where 25 rows fit).  The
+    kernel's own tile is its library's (``flash_decode_tile``, which splits
+    the cache by it); this is the CPU model's, which ``chip_smoke.py`` holds
+    equal to the library's on the card."""
+    row = dh * itemsize
+    vectors = row // 16
+    lanes = 1 << (vectors - 1).bit_length()    # a row's lanes, one vector each
+    step = 4 * max(1, 32 // lanes)             # 4 warps x rows a warp load
+    rows = _STAGE_BYTES // (2 * row)
+    return rows - rows % step
 
 
 def split_ranges(C: int, tile: int) -> tuple:
@@ -87,7 +93,8 @@ def split_ranges(C: int, tile: int) -> tuple:
     ``[lo, hi)`` with ``per = ceil(C / SPLITS)`` rounded up to ``tile``,
     ``lo = min(C, r * per)``, ``hi = min(C, lo + per)``; a range may be
     empty.  -> ``(per, [(lo, hi), ...])``."""
-    per = _per(C, tile)
+    per = -(-C // SPLITS)
+    per = -(-per // tile) * tile
     ranges = []
     for r in range(SPLITS):
         lo = min(C, r * per)
@@ -161,14 +168,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid.dtype != torch.bool:
         valid = valid > 0
     valid = valid.contiguous()
-    per = _per(C, stage_positions(dh, k.element_size()))
     gb = 1 << (G - 1).bit_length()                # the kernel's head bound
     n_ws = B * KV * SPLITS * (2 * gb + gb * dh)
     ws, tickets = _scratch(q.device, n_ws, B * KV)
     out = torch.empty_like(q)
     build.launch("flash_decode", "flash_decode", _SIG, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), valid.data_ptr(), B, KV, G, dh,
-                 C, per, int(q.dtype == torch.bfloat16),
+                 C, int(q.dtype == torch.bfloat16),
                  int(k.dtype == torch.bfloat16), ws.data_ptr(), ws.numel(),
                  tickets.data_ptr(), tickets.numel(), out.data_ptr())
     LAUNCHES["flash_decode"] += 1

@@ -1,5 +1,5 @@
-"""Decoder-only LM over the dense attention block stack
-(``repro/models/lm.py``), in PyTorch.
+"""Decoder-only LM over heterogeneous block stacks (``repro/models/lm.py``),
+in PyTorch.
 
 The layer list (``cfg.layer_types``) is segmented into maximal runs of equal
 block type; each segment's per-layer params are stacked on a leading axis,
@@ -15,9 +15,17 @@ The vocab projection is chunked over ``LOSS_CHUNK`` positions as in the
 reference, so at full width one chunk's f32 logits are 512 x vocab.
 
 Carried block types: ``attn`` (full attention + gated MLP: qwen3, mistral,
-llama3), ``local`` (sliding window) and ``global`` (gemma3).  The others —
-``attn_moe``, ``mamba2``, ``shared_attn``, ``mlstm``, ``slstm`` — raise
-:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).  Decode
+llama3), ``local`` (sliding window) and ``global`` (gemma3), ``attn_moe``
+(full attention + the MoE MLP of :mod:`.moe`: olmoe, phi3.5-moe; each
+layer adds its router's load-balance loss to the aux loss), ``mamba2`` (the
+SSD mixer of :mod:`.mamba2`) and ``shared_attn`` (zamba2: one attention
+block and MLP in ``params["shared"]``, applied by every such layer with its
+own ``ln1``/``ln2`` and its own KV cache).  ``mlstm`` and ``slstm`` raise
+:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).  A mamba2
+layer's cache is its state ``{"h", "conv"}``, both f32 whatever the KV
+cache's type: the reference's decode step promotes the conv tail to the
+activations' f32, so its leaf is f32 from the first step on.  A mamba2
+layer's decode runs inside the profiler range ``mamba2.decode``.  Decode
 updates the caches in place and returns them.
 """
 from __future__ import annotations
@@ -29,7 +37,10 @@ import torch
 
 from .. import not_ported, resolve_device
 from ..configs.base import ArchConfig
+from ..obs.trace import device_range
 from . import blocks as B
+from . import mamba2 as M2
+from . import moe as MOE
 
 __all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
            "decode_step", "init_caches", "forward_hidden"]
@@ -37,11 +48,12 @@ __all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
 #: block types that are one attention block + gated MLP; the window adds
 #: one term to the mask and a ring-buffer cursor
 DENSE_TYPES = ("attn", "local", "global")
+CARRIED_TYPES = DENSE_TYPES + ("attn_moe", "shared_attn", "mamba2")
 LOSS_CHUNK = 512  # sequence chunk for the vocab-projection loss
 
 
 def _check_btype(btype: str):
-    if btype not in DENSE_TYPES:
+    if btype not in CARRIED_TYPES:
         raise not_ported(f"block type {btype!r}", 10)
 
 
@@ -56,12 +68,23 @@ def _layer(tree, j: int):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _block_init(generator, cfg: ArchConfig, dtype, count: int):
+def _block_init(generator, btype: str, cfg: ArchConfig, dtype, count: int):
     D, dev, lead = cfg.d_model, generator.device, (count,)
-    return {"ln1": torch.ones(count, D, dtype=dtype, device=dev),
-            "attn": B.attn_init(generator, cfg, dtype, lead),
-            "ln2": torch.ones(count, D, dtype=dtype, device=dev),
-            "mlp": B.mlp_init(generator, cfg, dtype=dtype, lead=lead)}
+
+    def norm():
+        return torch.ones(count, D, dtype=dtype, device=dev)
+    if btype == "mamba2":
+        return {"ln1": norm(),
+                "mamba": M2.mamba2_init(generator, cfg, dtype, lead)}
+    p = {"ln1": norm(), "ln2": norm()}
+    if btype == "shared_attn":      # the body lives in params["shared"]
+        return p
+    p["attn"] = B.attn_init(generator, cfg, dtype, lead)
+    if btype == "attn_moe":
+        p["moe"] = MOE.moe_init(generator, cfg, dtype, lead)
+    else:
+        p["mlp"] = B.mlp_init(generator, cfg, dtype=dtype, lead=lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -85,8 +108,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = B.dense_init(generator, cfg.d_model, cfg.vocab,
                                          dtype)
-    for _, count in cfg.segments:
-        params["segments"].append(_block_init(generator, cfg, dtype, count))
+    if any(t == "shared_attn" for t, _ in cfg.segments):
+        params["shared"] = {"attn": B.attn_init(generator, cfg, dtype),
+                            "mlp": B.mlp_init(generator, cfg, dtype=dtype)}
+    for btype, count in cfg.segments:
+        params["segments"].append(_block_init(generator, btype, cfg, dtype,
+                                              count))
     return params
 
 
@@ -108,14 +135,32 @@ def params_from_jax(params, device="cuda"):
 # ---------------------------------------------------------------------------
 # block application (prefill path)
 # ---------------------------------------------------------------------------
-def _block_apply(p, h, btype, cfg: ArchConfig, positions):
+def _block_apply(p, h, btype, cfg: ArchConfig, positions, shared,
+                 return_state: bool = False):
+    """One block on h: (B, S, D) -> (h, aux, cache entry): aux the router's
+    load-balance loss of an ``attn_moe`` block (else None); the entry (k, v)
+    of an attention block, the SSM state of a mamba2 block under
+    ``return_state`` (else None)."""
     _check_btype(btype)
+    if btype == "mamba2":
+        x = B.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        if return_state:
+            y, state = M2.mamba2_apply(p["mamba"], x, cfg, return_state=True)
+            return h + y, None, state
+        return h + M2.mamba2_apply(p["mamba"], x, cfg), None, None
     window = cfg.window if btype == "local" else None
-    a, kv = B.attn_apply(p["attn"], B.rmsnorm(h, p["ln1"], cfg.norm_eps),
+    body = shared if btype == "shared_attn" else p
+    a, kv = B.attn_apply(body["attn"], B.rmsnorm(h, p["ln1"], cfg.norm_eps),
                          cfg, positions, window=window)
     h = h + a
-    y = B.mlp_apply(p["mlp"], B.rmsnorm(h, p["ln2"], cfg.norm_eps))
-    return h + y, kv
+    x2 = B.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    aux = None
+    if btype == "attn_moe":
+        y, probs = MOE.moe_apply(p["moe"], x2, cfg)
+        aux = MOE.router_aux_loss(probs)
+    else:
+        y = B.mlp_apply(body["mlp"], x2)
+    return h + y, aux, kv
 
 
 def _unbind(tree, count: int) -> list:
@@ -129,13 +174,17 @@ def _unbind(tree, count: int) -> list:
 
 
 def forward_hidden(params, cfg: ArchConfig, h, positions):
-    """Run the block stack on embeddings h: (B, S, D) -> (h, aux_loss); the
-    aux loss is 0 (no carried block type has one)."""
+    """Run the block stack on embeddings h: (B, S, D) -> (h, aux_loss): the
+    aux loss (f32) sums the router losses of the ``attn_moe`` layers."""
+    shared = params.get("shared")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for (btype, count), seg_p in zip(cfg.segments, params["segments"]):
         for p in _unbind(seg_p, count):
-            h, _ = _block_apply(p, h, btype, cfg, positions)
+            h, a, _ = _block_apply(p, h, btype, cfg, positions, shared)
+            if a is not None:
+                aux = aux + a
     h = B.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def _embed(params, cfg: ArchConfig, batch):
@@ -194,24 +243,40 @@ def loss_train(params, cfg: ArchConfig, batch, aux_weight: float = 0.01):
 def init_caches(cfg: ArchConfig, batch: int, length: int,
                 dtype=torch.bfloat16, device="cuda"):
     """One stacked cache dict per segment, leaves ``(count, ...)``, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU): a KV cache of
+    an attention segment in ``dtype``, the SSM state of a mamba2 one in f32
+    (the type of the reference's state after its first decode step)."""
     dev = resolve_device(device)
     caches = []
     for btype, count in cfg.segments:
         _check_btype(btype)
+        if btype == "mamba2":
+            caches.append(M2.make_ssm_state(cfg, batch, torch.float32, dev,
+                                            lead=(count,)))
+            continue
         C = min(cfg.window, length) if btype == "local" else length
         caches.append(B.make_cache(cfg, batch, C, dtype=dtype, device=dev,
                                    lead=(count,)))
     return caches
 
 
-def _block_decode(p, h, cache, btype, cfg: ArchConfig, positions):
+def _block_decode(p, h, cache, btype, cfg: ArchConfig, positions, shared):
     _check_btype(btype)
+    if btype == "mamba2":
+        with device_range("mamba2.decode"):
+            y, _ = M2.mamba2_decode(p["mamba"],
+                                    B.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                                    cfg, cache)
+        return h + y
     window = cfg.window if btype == "local" else None
-    a, _ = B.attn_decode(p["attn"], B.rmsnorm(h, p["ln1"], cfg.norm_eps),
+    body = shared if btype == "shared_attn" else p
+    a, _ = B.attn_decode(body["attn"], B.rmsnorm(h, p["ln1"], cfg.norm_eps),
                          cfg, positions, cache, window=window)
     h = h + a
-    return h + B.mlp_apply(p["mlp"], B.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    x2 = B.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    if btype == "attn_moe":
+        return h + MOE.moe_apply(p["moe"], x2, cfg)[0]
+    return h + B.mlp_apply(body["mlp"], x2)
 
 
 def decode_step(params, cfg: ArchConfig, token, caches, pos):
@@ -219,11 +284,12 @@ def decode_step(params, cfg: ArchConfig, token, caches, pos):
 
     Returns (logits (B, vocab), caches), the caches updated in place."""
     h = params["embed"][token.long()]
+    shared = params.get("shared")
     for (btype, count), seg_p, cache in zip(cfg.segments, params["segments"],
                                             caches):
         for j in range(count):
             h = _block_decode(_layer(seg_p, j), h, _layer(cache, j), btype,
-                              cfg, pos)
+                              cfg, pos, shared)
     h = B.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], caches
 
@@ -231,19 +297,32 @@ def decode_step(params, cfg: ArchConfig, token, caches, pos):
 def prefill(params, cfg: ArchConfig, batch, cache_len: Optional[int] = None,
             cache_dtype=torch.bfloat16):
     """Full-sequence forward returning last-token logits + populated caches
-    (on the device of the tokens)."""
+    (on the device of the tokens).  A mamba2 layer's cache is the state its
+    forward returns: h in f32, the conv tail in the activations' type (the
+    reference's)."""
     h = _embed(params, cfg, batch)
     pos = _positions(cfg, batch)
     Bt, S, _ = h.shape
     cache_len = cache_len or S
+    shared = params.get("shared")
     caches = []
     for (btype, count), seg_p in zip(cfg.segments, params["segments"]):
+        if btype == "mamba2":
+            states = []
+            for j in range(count):
+                h, _, st = _block_apply(_layer(seg_p, j), h, btype, cfg, pos,
+                                        shared, return_state=True)
+                states.append(st)
+            caches.append({k: torch.stack([st[k] for st in states])
+                           for k in ("h", "conv")})
+            continue
         window = cfg.window if btype == "local" else None
         C = min(cache_len, window) if window else cache_len
         cache = B.make_cache(cfg, Bt, C, dtype=cache_dtype, device=h.device,
                              lead=(count,))
         for j in range(count):
-            h, (k, v) = _block_apply(_layer(seg_p, j), h, btype, cfg, pos)
+            h, _, (k, v) = _block_apply(_layer(seg_p, j), h, btype, cfg, pos,
+                                        shared)
             # the last C entries, or the S entries padded to C
             n = min(S, C)
             cache["k"][j, :, :n] = k[:, S - n:].to(cache_dtype)

@@ -17,11 +17,13 @@ __all__ = ["ARCH_IDS", "get_config", "model_api"]
 _CONFIG_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "gemma3-4b": "gemma3_4b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 #: the JAX package's architectures this package does not carry yet
-_NOT_PORTED = ("mistral-large-123b", "qwen2-vl-7b", "olmoe-1b-7b",
-               "llama3-405b", "xlstm-1.3b", "zamba2-2.7b", "whisper-tiny",
-               "phi3.5-moe-42b-a6.6b")
+_NOT_PORTED = ("mistral-large-123b", "qwen2-vl-7b", "llama3-405b",
+               "xlstm-1.3b", "whisper-tiny")
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
 

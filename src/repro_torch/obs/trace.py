@@ -21,6 +21,7 @@ Export target is the Chrome trace-event JSON format, which Perfetto
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import threading
@@ -170,6 +171,17 @@ TRACER = Tracer(GLOBAL_SWITCH)
 def span(name: str, **args: object):
     """``with trace.span("gia.solve", sig=...):`` on the global tracer."""
     return TRACER.span(name, **args)
+
+
+def device_range(name: str):
+    """``with trace.device_range("moe.route"):`` names the operations inside
+    for a running ``torch.profiler`` (a ``record_function`` range: its host
+    event sums the device time of the kernels launched inside it); with no
+    profiler running it does nothing."""
+    import torch
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def add_span(name: str, t_start: float, t_end: float, **args: object) -> None:

@@ -6,6 +6,18 @@ prefill as a batch-of-one (cache splice), then decode together, the decode
 attention through flash decode (K6) on the card.  Greedy sampling;
 completion on EOS or max_new_tokens.  The engine runs on the card unless
 the caller passes ``device="cpu"``; the params must lie on that device.
+It serves the dense, MoE and hybrid families: a mamba2 layer's slot holds
+its SSM state ``{"h", "conv"}``, f32 leaves spliced like a KV cache.  The
+prefilled conv tail is rounded to the cache's type on admission, as the
+reference's splice casts it into its cache leaf; the reference's decode
+step then promotes that leaf to f32, which the port's leaf is from the
+start.  (The reference rounds only the tails it splices before its first
+step, the port every admission's: one rounding of ``ssm_conv - 1`` rows,
+gone from the conv window ``ssm_conv - 1`` steps later.)  Under MoE every
+slot's token, an idle slot's too, takes expert capacity in token order, so
+a slot's tokens depend on the others, as in the reference.  A hybrid
+prompt shorter than ``ssm_conv - 1`` tokens raises :class:`ValueError` at
+admission.
 Serving a VLM (patch embeddings, M-RoPE) or an encoder-decoder model
 raises :class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).
 """
@@ -70,10 +82,15 @@ class ServeEngine:
 
     def _splice_cache(self, slot: int, new_caches):
         """Copy a freshly prefilled batch-of-one cache into slot ``slot``
-        (every leaf is (count, B, ...), the batch on axis 1)."""
+        (every leaf, KV cache or SSM state, is (count, B, ...), the batch
+        on axis 1), cast to the leaf's type; an SSM conv tail rounded
+        through the cache's type first."""
         for full, one in zip(self.caches, new_caches):
             for key, leaf in full.items():
-                leaf[:, slot:slot + 1].copy_(one[key])
+                src = one[key]
+                if key == "conv":
+                    src = src.to(self.cache_dtype)
+                leaf[:, slot:slot + 1].copy_(src)
 
     @torch.no_grad()
     def submit(self, req: Request) -> bool:

@@ -234,3 +234,100 @@ def test_merge_model_matches_plain(C, kind):
     if C % BLOCK_C == 0:
         torch.testing.assert_close(out, _pallas(q, k, v, valid.float()),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# dh = 80 (zamba2-2.7b's head width)
+# ---------------------------------------------------------------------------
+def test_stage_positions_at_every_head_width():
+    """The tile is the rows of K and V 8 KB hold, cut to a whole number of
+    the kernel's warp loads (4 consumer warps x 32 / lanes-a-row rows, a
+    row read by the next power of two of 16-byte vectors' lanes): the
+    power-of-two widths keep 8 KB exactly, dh 80 cuts 25 rows to 24 over
+    bf16 and keeps 12 over f32; V's tile starts on a 128-byte boundary."""
+    want = {(64, 2): 32, (80, 2): 24, (128, 2): 16, (256, 2): 8,
+            (64, 4): 16, (80, 4): 12, (128, 4): 8, (256, 4): 4}
+    assert 80 in HEAD_DIMS
+    for (dh, size), tile in want.items():
+        assert stage_positions(dh, size) == tile, (dh, size)
+        row = dh * size
+        lanes = 1 << (row // 16 - 1).bit_length()
+        assert tile % (4 * max(1, 32 // lanes)) == 0
+        assert tile * row % 128 == 0 and 2 * tile * row <= 8192
+
+
+@pytest.mark.parametrize("C", [1, 23, 24, 25, 191, 192, 193, 4096])
+def test_split_ranges_at_dh80(C):
+    """The splits at dh 80's tiles: whole tiles of 24 (bf16) or 12 (f32)
+    positions, covering [0, C) once."""
+    for tile in (stage_positions(80, 2), stage_positions(80, 4)):
+        per, ranges = split_ranges(C, tile)
+        assert per % tile == 0 and per >= -(-C // SPLITS)
+        assert ranges[0][0] == 0 and ranges[-1][1] == C
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("C,kind", [(100, "one split"), (777, "random"),
+                                    (9, "all-masked row")])
+def test_merge_model_matches_plain_dh80(C, kind):
+    """The split-and-merge model at dh 80 and the bf16 cache's tile of 24
+    positions against the plain version within 1e-5."""
+    rng = np.random.default_rng(C + 80)
+    q, k, v, _ = _inputs(2, 4, 1, 80, C, torch.float32, seed=C + 80)
+    valid = _mask(kind, 2, C, rng)
+    torch.testing.assert_close(
+        _merge_model(q, k, v, valid, tile=stage_positions(80, 2)),
+        flash_decode_plain(q, k, v, valid), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+def test_plain_matches_repro_attn_decode_dh80(cache):
+    """The port's decode attention (K6's plain version on the CPU) on a
+    zamba2-smoke cache with d_head = 80 (zamba2-2.7b's head width, G = 1)
+    against the JAX package's ``attn_decode``: the output within 1e-5 over
+    an f32 cache; over a bf16 cache within 3e-2 (the reference rounds its
+    softmax weights and output to the cache type, K6 keeps f32); the
+    updated caches' positions and cursors equal, the new k/v entry within
+    1e-5 (f32) or one bf16 ulp."""
+    import dataclasses
+
+    import jax
+    from repro.models import blocks as RB
+    from repro.models.registry import get_config as r_get_config
+    from repro_torch.models import blocks as PB
+    from repro_torch.models.registry import get_config
+
+    rcfg = dataclasses.replace(r_get_config("zamba2-2.7b", smoke=True),
+                               d_head=80)
+    pcfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True),
+                               d_head=80)
+    rdt, pdt = ((jnp.float32, torch.float32) if cache == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    rp = RB.attn_init(jax.random.PRNGKey(0), rcfg)
+    pp = {k_: torch.tensor(np.asarray(a)) for k_, a in rp.items()}
+    rng = np.random.default_rng(80)
+    B, C, n = 3, 40, np.array([5, 17, 39])
+    kv = rng.standard_normal((2, B, C, rcfg.n_kv, 80)).astype(np.float32)
+    pos = np.where(np.arange(C)[None] < n[:, None], np.arange(C)[None],
+                   -1).astype(np.int32)
+    rc = {"k": jnp.asarray(kv[0], rdt), "v": jnp.asarray(kv[1], rdt),
+          "pos": jnp.asarray(pos), "idx": jnp.asarray(n, jnp.int32)}
+    pc = {"k": torch.from_numpy(kv[0]).to(pdt),
+          "v": torch.from_numpy(kv[1]).to(pdt),
+          "pos": torch.from_numpy(pos), "idx": torch.from_numpy(
+              n.astype(np.int32))}
+    x = rng.standard_normal((B, 1, rcfg.d_model)).astype(np.float32)
+    qpos = n[:, None].astype(np.int32)
+    ry, rc = jax.jit(lambda p, x_, q_, c_: RB.attn_decode(
+        p, x_, rcfg, q_, c_))(rp, jnp.asarray(x), jnp.asarray(qpos), rc)
+    py, pc = PB.attn_decode(pp, torch.from_numpy(x), pcfg,
+                            torch.from_numpy(qpos), pc)
+    tol = 1e-5 if cache == "f32" else 3e-2
+    torch.testing.assert_close(py, torch.tensor(np.asarray(ry, np.float32)),
+                               rtol=tol, atol=tol)
+    for key in ("pos", "idx"):
+        assert np.array_equal(np.asarray(rc[key]), pc[key].numpy()), key
+    for key in ("k", "v"):       # the new entry: f32 projections and RoPE
+        torch.testing.assert_close(      # in another order, then the cast
+            pc[key].float(), torch.tensor(np.asarray(rc[key], np.float32)),
+            rtol=1e-5 if cache == "f32" else 2.0 ** -7, atol=1e-5)

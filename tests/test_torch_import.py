@@ -47,7 +47,9 @@ _SLICE_MODULES = (
     "repro_torch.fed", "repro_torch.fed.runtime", "repro_torch.fed.transport",
     "repro_torch.train", "repro_torch.train.trainer",
     "repro_torch.train.checkpoint", "repro_torch.data.synthetic",
-    "repro_torch.data.federated")
+    "repro_torch.data.federated", "repro_torch.models.moe",
+    "repro_torch.models.mamba2", "repro_torch.configs.olmoe_1b_7b",
+    "repro_torch.configs.phi35_moe", "repro_torch.configs.zamba2_2_7b")
 
 
 def test_port_imports_without_jax_or_repro():

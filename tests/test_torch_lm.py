@@ -235,21 +235,24 @@ def _encdec_engine():
     _engine(params, dataclasses.replace(cfg, encdec=True), 1)
 
 
-def _moe_init():
+def _mlstm_init():
+    """MoE and mamba2 blocks are carried (tests/test_torch_arch.py); an
+    xLSTM block still raises naming item 10."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
-                              pattern=("attn_moe",))
+                              pattern=("mlstm",))
     PLM.init_params(cfg, torch.Generator())
 
 
-def _moe_loss_train():
-    """loss_train carries the dense stacks (tests/test_torch_train.py); an
-    MoE block on its path still raises naming item 10."""
-    cfg = get_config("qwen3-1.7b", smoke=True)
+def _mlstm_loss_train():
+    """loss_train carries the dense, MoE and hybrid stacks
+    (tests/test_torch_train.py, tests/test_torch_arch.py); an mLSTM block
+    on its path still raises naming item 10."""
+    cfg = get_config("olmoe-1b-7b", smoke=True)
     params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
     tok = torch.zeros(1, 4, dtype=torch.int32)
     batch = {"tokens": tok, "labels": tok}
     assert torch.isfinite(PLM.loss_train(params, cfg, batch))
-    PLM.loss_train(params, dataclasses.replace(cfg, pattern=("attn_moe",)),
+    PLM.loss_train(params, dataclasses.replace(cfg, pattern=("mlstm",)),
                    batch)
 
 
@@ -258,10 +261,11 @@ def _moe_loss_train():
     lambda: get_config("whisper-tiny", smoke=True),
     _vlm_submit,
     _encdec_engine,
-    _moe_init,
-    _moe_loss_train,
+    _mlstm_init,
+    _mlstm_loss_train,
 ], ids=["arch", "arch-smoke", "vlm-submit", "encdec", "moe-block",
-        "loss_train"])
+        "loss_train"])  # "moe-block" names the block-type refusal, of mlstm
+                        # now that MoE is carried
 def test_not_ported_raises(call):
     with pytest.raises(NotImplementedError, match="item 10"):
         call()

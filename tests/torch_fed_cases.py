@@ -8,9 +8,10 @@ the batch's first token, so its gradient ``k * c_leaf`` is exact in bf16
 and the same in both packages: both runtimes then train identical worker
 params, and a round's difference comes from the aggregation alone.
 
-    python -m tests.torch_fed_cases reference OUT.npz
-        the JAX package's rounds on a (2, 1, 1) CPU mesh, every case
-        (imports jax; sets the host device count first);
+    python -m tests.torch_fed_cases reference OUT.npz [families]
+        the JAX package's rounds on a (2, 1, 1) CPU mesh, every case of
+        CASES, or of FAMILY_CASES with ``families`` (imports jax; sets the
+        host device count first);
     python -m tests.torch_fed_cases rank RANK PORT OUT.npz
         one gloo rank of two running every DIST_CASES case through
         ``DistTransport`` (imports no jax).
@@ -31,7 +32,7 @@ _Q7 = dict(Kn=(1, 2), s0=7, sn=(7, 5))
 _W = (0.7, 0.3)
 _U = (1.5, 0.5)
 
-#: name -> (FedConfig kwargs, tree: "stub" | "qwen" | "tiny",
+#: name -> (FedConfig kwargs, tree: "stub" | "tiny" | an arch of ARCHS,
 #: api: "stub" | "real", u)
 CASES = {
     "f32": (dict(_Q, wire="f32"), "stub", "stub", None),
@@ -52,6 +53,21 @@ CASES = {
     "elias": (dict(Kn=(1, 2), s0=7, sn=(5, 7), wire="elias"), "tiny",
               "stub", None),
 }
+#: the rounds at the MoE and hybrid smoke configs: the real loss (the
+#: router's aux term included) with exact workers and server, and the stub
+#: loss on the same trees through the int8 wire (the aggregation alone);
+#: their reference runs in a subprocess of its own
+FAMILY_CASES = {
+    "olmoe": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "olmoe",
+              "real", None),
+    "olmoe_int8": (dict(_Q, wire="int8"), "olmoe", "stub", None),
+    "zamba2": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "zamba2",
+               "real", None),
+    "zamba2_int8": (dict(_Q, wire="int8"), "zamba2", "stub", None),
+}
+#: tree name -> the arch whose smoke config it is
+ARCHS = {"stub": "qwen3-1.7b", "qwen": "qwen3-1.7b", "olmoe": "olmoe-1b-7b",
+         "zamba2": "zamba2-2.7b"}
 #: cases run in the port only, each held bitwise against a case of another
 #: wire at the same quantizers (the reference's rounds are keyed by "f32")
 PORT_ONLY = {
@@ -119,10 +135,10 @@ class StubApi:
         self.loss_train = loss
 
 
-def reference(out: str) -> None:
-    """Every CASES round through the JAX package's ``make_round_fn`` on a
-    (fl=2, fsdp=1, tp=1) CPU mesh, saved with the initial params and the
-    round keys' words."""
+def reference(out: str, families: bool = False) -> None:
+    """Every CASES (or FAMILY_CASES) round through the JAX package's
+    ``make_round_fn`` on a (fl=2, fsdp=1, tp=1) CPU mesh, saved with the
+    initial params and the round keys' words."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     import jax
     import jax.numpy as jnp
@@ -135,15 +151,14 @@ def reference(out: str) -> None:
                      ("fl", "fsdp", "tp"))
     key = jax.random.PRNGKey(1)
     res = {"keys": np.asarray(jax.random.split(key, FL + 1))}
-    cfgs = {"stub": get_config("qwen3-1.7b", smoke=True),
-            "qwen": get_config("qwen3-1.7b", smoke=True),
-            "tiny": ArchConfig(**TINY)}
-    trees = {"stub": jax.tree.map(jnp.asarray, stub_tree()),
-             "qwen": model_api(cfgs["qwen"]).init_params(
-                 jax.random.PRNGKey(0), cfgs["qwen"]),
-             "tiny": model_api(cfgs["tiny"]).init_params(
-                 jax.random.PRNGKey(0), cfgs["tiny"])}
-    for name, (fed_kw, tree, api, u) in CASES.items():
+    cases = FAMILY_CASES if families else CASES
+    cfgs = {t: get_config(a, smoke=True) for t, a in ARCHS.items()}
+    cfgs["tiny"] = ArchConfig(**TINY)
+    trees = {t: model_api(c).init_params(jax.random.PRNGKey(0), c)
+             for t, c in cfgs.items()
+             if t != "stub" and any(v[1] == t for v in cases.values())}
+    trees["stub"] = jax.tree.map(jnp.asarray, stub_tree())
+    for name, (fed_kw, tree, api, u) in cases.items():
         cfg, params = cfgs[tree], trees[tree]
         fed = FedConfig(n_workers=FL, **fed_kw)
         rnd = jax.jit(make_round_fn(
@@ -159,7 +174,9 @@ def reference(out: str) -> None:
             [np.asarray(l).reshape(-1) for l in jax.tree.leaves(x_new)])
         for k, v in m.items():
             res[f"{name}/m/{k}"] = np.asarray(v)
-    for tree in ("qwen", "tiny"):
+    for tree in trees:
+        if tree == "stub":
+            continue
         for i, l in enumerate(jax.tree.leaves(trees[tree])):
             res[f"{tree}/x/{i}"] = np.asarray(l)
     np.savez(out, **res)
@@ -172,10 +189,11 @@ def port_round(case, x_hat, keys, transport=None):
     from repro_torch.fed import FedConfig, make_round_fn, tree_leaves
     from repro_torch.models.registry import get_config, model_api
     fed_kw, tree, api, u = case
-    cfg = get_config("qwen3-1.7b", smoke=True)
     if tree == "tiny":
         from repro_torch.configs.base import ArchConfig
         cfg = ArchConfig(**TINY)
+    else:
+        cfg = get_config(ARCHS[tree], smoke=True)
     fed = FedConfig(n_workers=FL, **fed_kw)
     rnd = make_round_fn(model_api(cfg) if api == "real"
                         else StubApi(stub_loss_torch), cfg, fed, transport)
@@ -219,6 +237,6 @@ def rank(rank_: int, port: int, out: str) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "reference":
-        reference(sys.argv[2])
+        reference(sys.argv[2], families=sys.argv[3:] == ["families"])
     else:
         rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
