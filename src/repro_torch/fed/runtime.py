@@ -281,13 +281,19 @@ def _loss_grad(api, cfg, fed, like, leaves, batch):
     return loss.detach(), list(grads)
 
 
-def _micro(a: torch.Tensor, M: int, m: int) -> torch.Tensor:
-    """Micro-batch m of M along the leading axis (the whole of a leaf that
-    M does not divide, as the reference broadcasts it)."""
-    if a.dim() >= 1 and a.shape[0] % M == 0:
-        k = a.shape[0] // M
-        return a[m * k:(m + 1) * k]
+def _micro(a: torch.Tensor, M: int, m: int, axis: int = 0) -> torch.Tensor:
+    """Micro-batch m of M along the batch axis ``axis`` (the whole of a
+    leaf that M does not divide, as the reference broadcasts it)."""
+    if a.dim() > axis and a.shape[axis] % M == 0:
+        k = a.shape[axis] // M
+        return a.narrow(axis, m * k, k)
     return a
+
+
+def _batch_axis(key: str) -> int:
+    """The batch axis of a step's batch leaf: 1 for M-RoPE's positions3
+    (3, B, S), else 0."""
+    return 1 if key == "positions3" else 0
 
 
 def _eval_grad(api, cfg, fed, like, p, batch):
@@ -302,7 +308,8 @@ def _eval_grad(api, cfg, fed, like, p, batch):
     g_acc = [torch.zeros_like(w) for w in half]
     l_acc = torch.zeros((), dtype=torch.float32, device=half[0].device)
     for m in range(M):
-        micro = {k: _micro(v, M, m) for k, v in batch.items()}
+        micro = {k: _micro(v, M, m, _batch_axis(k))
+                 for k, v in batch.items()}
         l, g = _loss_grad(api, cfg, fed, like, half, micro)
         g_acc = [a + gg.to(a.dtype) / M for a, gg in zip(g_acc, g)]
         l_acc = l_acc + l / M

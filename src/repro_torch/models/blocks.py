@@ -8,7 +8,10 @@ The layout is the JAX package's: activations (B, S, D), q/k/v
 softmax), query-chunked as the reference is; single-token decode attention
 is flash decode (K6, :mod:`repro_torch.kernels.flash_decode`).  Decode
 updates its cache in place (the JAX function returns a new one) and returns
-it.  M-RoPE (qwen2-vl) and LayerNorm (whisper) are not carried yet.
+it.  Under M-RoPE (qwen2-vl) positions are ``positions3`` (3, B, S), the
+(t, h, w) streams; the causal mask and the cache's positions take stream 0,
+the temporal order, as the reference does.  LayerNorm (whisper) is not
+carried yet.
 """
 from __future__ import annotations
 
@@ -82,8 +85,26 @@ def apply_rope(x, positions, theta: float):
     return _rotate(x, *_rope_cos_sin(positions, x.shape[-1], theta))
 
 
-def apply_mrope(*args, **kwargs):
-    raise not_ported("M-RoPE (qwen2-vl)", 10)
+def _mrope_cos_sin(positions3, d_head: int, theta: float, sections):
+    """cos, sin of (B, S, 1, dh/2) for positions3 (3, B, S): frequency band
+    i takes its position from stream ``repeat(arange(3), sections)[i]``."""
+    if sum(sections) != d_head // 2:
+        raise ValueError(f"mrope_sections {tuple(sections)} must sum to "
+                         f"d_head / 2 = {d_head // 2}")
+    inv = rope_freqs(d_head, theta, positions3.device)
+    ends = np.cumsum((0, *sections))
+    ang = torch.cat([positions3[i][..., None].float()
+                     * inv[ends[i]:ends[i + 1]] for i in range(3)],
+                    dim=-1)                                  # (B,S,dh/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Multimodal RoPE (qwen2-vl): x (B, S, H, dh); positions3 (3, B, S) =
+    the (t, h, w) streams; the dh/2 frequency bands are split into
+    ``sections`` consuming different position streams."""
+    return _rotate(x, *_mrope_cos_sin(positions3, x.shape[-1], theta,
+                                      sections))
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +135,12 @@ def _qkv(p, x, cfg: ArchConfig, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.mrope:
-        raise not_ported("M-RoPE (qwen2-vl)", 10)
     # one cos/sin for q and k (the reference computes the same twice)
-    cos, sin = _rope_cos_sin(positions, dh, cfg.rope_theta)
+    if cfg.mrope:
+        cos, sin = _mrope_cos_sin(positions, dh, cfg.rope_theta,
+                                  cfg.mrope_sections)
+    else:
+        cos, sin = _rope_cos_sin(positions, dh, cfg.rope_theta)
     return _rotate(q, cos, sin), _rotate(k, cos, sin), v
 
 
@@ -146,15 +169,16 @@ def attn_apply(p, x, cfg: ArchConfig, positions, *, window=None):
     G = H // KV
     q, k, v = _qkv(p, x, cfg, positions)
     q = q.reshape(B, S, KV, G, dh)
+    tok_pos = positions[0] if cfg.mrope else positions      # (B,S)
     n_chunks = max(1, S // Q_CHUNK)
     if S % Q_CHUNK == 0 and n_chunks > 1:
         outs = [_sdpa_chunk(q[:, i * Q_CHUNK:(i + 1) * Q_CHUNK], k, v,
-                            positions[:, i * Q_CHUNK:(i + 1) * Q_CHUNK],
-                            positions, window)
+                            tok_pos[:, i * Q_CHUNK:(i + 1) * Q_CHUNK],
+                            tok_pos, window)
                 for i in range(n_chunks)]
         out = torch.cat(outs, dim=1).reshape(B, S, H * dh)
     else:
-        out = _sdpa_chunk(q, k, v, positions, positions, window)
+        out = _sdpa_chunk(q, k, v, tok_pos, tok_pos, window)
         out = out.reshape(B, S, H * dh)
     return out @ p["wo"], (k, v)
 
@@ -177,9 +201,10 @@ def attn_decode(p, x, cfg: ArchConfig, positions, cache, *, window=None):
     slot = cache["idx"] % C                                   # (B,)
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = positions[:, 0].to(torch.int32)
+    tok_pos = positions[0] if cfg.mrope else positions      # (B,1)
+    cache["pos"][rows, slot] = tok_pos[:, 0].to(torch.int32)
     cpos = cache["pos"]
-    q_pos = positions[:, :1]
+    q_pos = tok_pos[:, :1]
     valid = (cpos >= 0) & (cpos <= q_pos)                     # (B, C)
     if window is not None:
         valid &= cpos > q_pos - window

@@ -20,13 +20,19 @@ llama3), ``local`` (sliding window) and ``global`` (gemma3), ``attn_moe``
 layer adds its router's load-balance loss to the aux loss), ``mamba2`` (the
 SSD mixer of :mod:`.mamba2`) and ``shared_attn`` (zamba2: one attention
 block and MLP in ``params["shared"]``, applied by every such layer with its
-own ``ln1``/``ln2`` and its own KV cache).  ``mlstm`` and ``slstm`` raise
-:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).  A mamba2
-layer's cache is its state ``{"h", "conv"}``, both f32 whatever the KV
-cache's type: the reference's decode step promotes the conv tail to the
-activations' f32, so its leaf is f32 from the first step on.  A mamba2
-layer's decode runs inside the profiler range ``mamba2.decode``.  Decode
-updates the caches in place and returns them.
+own ``ln1``/``ln2`` and its own KV cache), ``mlstm`` and ``slstm`` (the
+xLSTM blocks of :mod:`.xlstm`).  A mamba2 layer's cache is its state
+``{"h", "conv"}``, both f32 whatever the KV cache's type: the reference's
+decode step promotes the conv tail to the activations' f32, so its leaf is
+f32 from the first step on.  An xLSTM layer's cache is its state, f32
+(``{"C", "n", "m"}`` for mLSTM, ``{"c", "n", "h", "m"}`` for sLSTM), as
+the reference's.  A mamba2 layer's decode runs inside the profiler range
+``mamba2.decode``, an xLSTM layer's inside ``xlstm.mlstm_decode`` or
+``xlstm.slstm_decode``.  Decode updates the caches in place and returns
+them.  A VLM (qwen2-vl) batch carries ``patch_embeds`` (B, n_patch, D),
+which replace the first n_patch token embeddings, and ``positions3``
+(3, B, S) for M-RoPE; decode broadcasts its (B, 1) positions to the three
+streams.
 """
 from __future__ import annotations
 
@@ -35,12 +41,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..obs.trace import device_range
 from . import blocks as B
 from . import mamba2 as M2
 from . import moe as MOE
+from . import xlstm as XL
 
 __all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
            "decode_step", "init_caches", "forward_hidden"]
@@ -48,13 +55,15 @@ __all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
 #: block types that are one attention block + gated MLP; the window adds
 #: one term to the mask and a ring-buffer cursor
 DENSE_TYPES = ("attn", "local", "global")
-CARRIED_TYPES = DENSE_TYPES + ("attn_moe", "shared_attn", "mamba2")
+#: block types whose cache is a recurrent state, not a KV cache
+STATE_TYPES = ("mamba2", "mlstm", "slstm")
+CARRIED_TYPES = DENSE_TYPES + ("attn_moe", "shared_attn") + STATE_TYPES
 LOSS_CHUNK = 512  # sequence chunk for the vocab-projection loss
 
 
 def _check_btype(btype: str):
     if btype not in CARRIED_TYPES:
-        raise not_ported(f"block type {btype!r}", 10)
+        raise ValueError(f"unknown block type {btype!r}")
 
 
 def _layer(tree, j: int):
@@ -76,6 +85,12 @@ def _block_init(generator, btype: str, cfg: ArchConfig, dtype, count: int):
     if btype == "mamba2":
         return {"ln1": norm(),
                 "mamba": M2.mamba2_init(generator, cfg, dtype, lead)}
+    if btype == "mlstm":
+        return {"ln1": norm(),
+                "mlstm": XL.mlstm_init(generator, cfg, dtype, lead)}
+    if btype == "slstm":
+        return {"ln1": norm(),
+                "slstm": XL.slstm_init(generator, cfg, dtype, lead)}
     p = {"ln1": norm(), "ln2": norm()}
     if btype == "shared_attn":      # the body lives in params["shared"]
         return p
@@ -139,15 +154,16 @@ def _block_apply(p, h, btype, cfg: ArchConfig, positions, shared,
                  return_state: bool = False):
     """One block on h: (B, S, D) -> (h, aux, cache entry): aux the router's
     load-balance loss of an ``attn_moe`` block (else None); the entry (k, v)
-    of an attention block, the SSM state of a mamba2 block under
-    ``return_state`` (else None)."""
+    of an attention block, the recurrent state of a mamba2 or xLSTM block
+    under ``return_state`` (else None)."""
     _check_btype(btype)
-    if btype == "mamba2":
+    if btype in STATE_TYPES:
+        apply, key = _STATE_APPLY[btype]
         x = B.rmsnorm(h, p["ln1"], cfg.norm_eps)
         if return_state:
-            y, state = M2.mamba2_apply(p["mamba"], x, cfg, return_state=True)
+            y, state = apply(p[key], x, cfg, return_state=True)
             return h + y, None, state
-        return h + M2.mamba2_apply(p["mamba"], x, cfg), None, None
+        return h + apply(p[key], x, cfg), None, None
     window = cfg.window if btype == "local" else None
     body = shared if btype == "shared_attn" else p
     a, kv = B.attn_apply(body["attn"], B.rmsnorm(h, p["ln1"], cfg.norm_eps),
@@ -161,6 +177,12 @@ def _block_apply(p, h, btype, cfg: ArchConfig, positions, shared,
     else:
         y = B.mlp_apply(body["mlp"], x2)
     return h + y, aux, kv
+
+
+#: a recurrent block's mixer: block type -> (apply, its params' key)
+_STATE_APPLY = {"mamba2": (M2.mamba2_apply, "mamba"),
+                "mlstm": (XL.mlstm_apply, "mlstm"),
+                "slstm": (XL.slstm_apply, "slstm")}
 
 
 def _unbind(tree, count: int) -> list:
@@ -188,14 +210,16 @@ def forward_hidden(params, cfg: ArchConfig, h, positions):
 
 
 def _embed(params, cfg: ArchConfig, batch):
-    if "patch_embeds" in batch:
-        raise not_ported("VLM patch embeddings (qwen2-vl)", 10)
-    return params["embed"][batch["tokens"].long()]
+    h = params["embed"][batch["tokens"].long()]
+    if "patch_embeds" in batch:     # VLM: overwrite the image-token span
+        pe = batch["patch_embeds"]
+        h = torch.cat([pe.to(h.dtype), h[:, pe.shape[1]:]], dim=1)
+    return h
 
 
 def _positions(cfg: ArchConfig, batch):
     if cfg.mrope:
-        raise not_ported("M-RoPE positions (qwen2-vl)", 10)
+        return batch["positions3"]
     tokens = batch["tokens"]
     Bt, S = tokens.shape
     return torch.arange(S, dtype=torch.int32,
@@ -245,7 +269,8 @@ def init_caches(cfg: ArchConfig, batch: int, length: int,
     """One stacked cache dict per segment, leaves ``(count, ...)``, on
     ``device`` (the card unless the caller asks for the CPU): a KV cache of
     an attention segment in ``dtype``, the SSM state of a mamba2 one in f32
-    (the type of the reference's state after its first decode step)."""
+    (the type of the reference's state after its first decode step), the
+    state of an xLSTM one in f32 (the reference's)."""
     dev = resolve_device(device)
     caches = []
     for btype, count in cfg.segments:
@@ -254,19 +279,31 @@ def init_caches(cfg: ArchConfig, batch: int, length: int,
             caches.append(M2.make_ssm_state(cfg, batch, torch.float32, dev,
                                             lead=(count,)))
             continue
+        if btype in ("mlstm", "slstm"):
+            make = XL.make_mlstm_state if btype == "mlstm" \
+                else XL.make_slstm_state
+            caches.append(make(cfg, batch, dev, lead=(count,)))
+            continue
         C = min(cfg.window, length) if btype == "local" else length
         caches.append(B.make_cache(cfg, batch, C, dtype=dtype, device=dev,
                                    lead=(count,)))
     return caches
 
 
+#: a recurrent block's decode: block type -> (decode, its params' key,
+#: its profiler range)
+_STATE_DECODE = {"mamba2": (M2.mamba2_decode, "mamba", "mamba2.decode"),
+                 "mlstm": (XL.mlstm_decode, "mlstm", "xlstm.mlstm_decode"),
+                 "slstm": (XL.slstm_decode, "slstm", "xlstm.slstm_decode")}
+
+
 def _block_decode(p, h, cache, btype, cfg: ArchConfig, positions, shared):
     _check_btype(btype)
-    if btype == "mamba2":
-        with device_range("mamba2.decode"):
-            y, _ = M2.mamba2_decode(p["mamba"],
-                                    B.rmsnorm(h, p["ln1"], cfg.norm_eps),
-                                    cfg, cache)
+    if btype in STATE_TYPES:
+        decode, key, label = _STATE_DECODE[btype]
+        with device_range(label):
+            y, _ = decode(p[key], B.rmsnorm(h, p["ln1"], cfg.norm_eps), cfg,
+                          cache)
         return h + y
     window = cfg.window if btype == "local" else None
     body = shared if btype == "shared_attn" else p
@@ -280,10 +317,13 @@ def _block_decode(p, h, cache, btype, cfg: ArchConfig, positions, shared):
 
 
 def decode_step(params, cfg: ArchConfig, token, caches, pos):
-    """One decode step.  token: (B, 1) int; pos: (B, 1) int positions.
+    """One decode step.  token: (B, 1) int; pos: (B, 1) int positions
+    (broadcast to the three M-RoPE streams under ``cfg.mrope``).
 
     Returns (logits (B, vocab), caches), the caches updated in place."""
     h = params["embed"][token.long()]
+    if cfg.mrope:
+        pos = pos[None].expand(3, *pos.shape)
     shared = params.get("shared")
     for (btype, count), seg_p, cache in zip(cfg.segments, params["segments"],
                                             caches):
@@ -297,24 +337,26 @@ def decode_step(params, cfg: ArchConfig, token, caches, pos):
 def prefill(params, cfg: ArchConfig, batch, cache_len: Optional[int] = None,
             cache_dtype=torch.bfloat16):
     """Full-sequence forward returning last-token logits + populated caches
-    (on the device of the tokens).  A mamba2 layer's cache is the state its
-    forward returns: h in f32, the conv tail in the activations' type (the
-    reference's)."""
+    (on the device of the tokens).  A recurrent layer's cache is the state
+    its forward returns: for mamba2 h in f32 and the conv tail in the
+    activations' type (the reference's), for xLSTM f32 leaves.  The cache
+    positions are the tokens' (stream 0 under M-RoPE)."""
     h = _embed(params, cfg, batch)
     pos = _positions(cfg, batch)
+    tok_pos = pos[0] if cfg.mrope else pos
     Bt, S, _ = h.shape
     cache_len = cache_len or S
     shared = params.get("shared")
     caches = []
     for (btype, count), seg_p in zip(cfg.segments, params["segments"]):
-        if btype == "mamba2":
+        if btype in STATE_TYPES:
             states = []
             for j in range(count):
                 h, _, st = _block_apply(_layer(seg_p, j), h, btype, cfg, pos,
                                         shared, return_state=True)
                 states.append(st)
             caches.append({k: torch.stack([st[k] for st in states])
-                           for k in ("h", "conv")})
+                           for k in states[0]})
             continue
         window = cfg.window if btype == "local" else None
         C = min(cache_len, window) if window else cache_len
@@ -327,7 +369,7 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: Optional[int] = None,
             n = min(S, C)
             cache["k"][j, :, :n] = k[:, S - n:].to(cache_dtype)
             cache["v"][j, :, :n] = v[:, S - n:].to(cache_dtype)
-            cache["pos"][j, :, :n] = pos[:, S - n:]
+            cache["pos"][j, :, :n] = tok_pos[:, S - n:]
             cache["idx"][j] = S % C if window else S
         caches.append(cache)
     h = B.rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -1,8 +1,9 @@
 """Architecture registry (``repro/models/registry.py``): ``arch id`` ->
 config and model API, for the architectures the port carries.
 
-The JAX package's other ids raise :class:`NotImplementedError` naming their
-ROADMAP item; an id neither package knows raises :class:`KeyError`.
+The JAX package's other id (whisper-tiny) raises
+:class:`NotImplementedError` naming its ROADMAP item; an id neither package
+knows raises :class:`KeyError`.
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ _CONFIG_MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "zamba2-2.7b": "zamba2_2_7b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "llama3-405b": "llama3_405b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 #: the JAX package's architectures this package does not carry yet
-_NOT_PORTED = ("mistral-large-123b", "qwen2-vl-7b", "llama3-405b",
-               "xlstm-1.3b", "whisper-tiny")
+_NOT_PORTED = ("whisper-tiny",)
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
 

@@ -6,8 +6,9 @@ prefill as a batch-of-one (cache splice), then decode together, the decode
 attention through flash decode (K6) on the card.  Greedy sampling;
 completion on EOS or max_new_tokens.  The engine runs on the card unless
 the caller passes ``device="cpu"``; the params must lie on that device.
-It serves the dense, MoE and hybrid families: a mamba2 layer's slot holds
-its SSM state ``{"h", "conv"}``, f32 leaves spliced like a KV cache.  The
+It serves the dense, MoE, hybrid, xLSTM and VLM families: a mamba2
+layer's slot holds its SSM state ``{"h", "conv"}``, an xLSTM layer's its
+f32 state, leaves spliced like a KV cache.  The
 prefilled conv tail is rounded to the cache's type on admission, as the
 reference's splice casts it into its cache leaf; the reference's decode
 step then promotes that leaf to f32, which the port's leaf is from the
@@ -17,9 +18,11 @@ gone from the conv window ``ssm_conv - 1`` steps later.)  Under MoE every
 slot's token, an idle slot's too, takes expert capacity in token order, so
 a slot's tokens depend on the others, as in the reference.  A hybrid
 prompt shorter than ``ssm_conv - 1`` tokens raises :class:`ValueError` at
-admission.
-Serving a VLM (patch embeddings, M-RoPE) or an encoder-decoder model
-raises :class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).
+admission.  A VLM request (qwen2-vl) is admitted as the reference admits
+it: zero patch embeddings over the first ``max(1, int(P *
+vision_patches_frac))`` positions and three equal M-RoPE streams
+``arange(P)``.  Serving an encoder-decoder model raises
+:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.registry import model_api
 
@@ -112,11 +115,15 @@ class ServeEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        if self.cfg.family == "vlm":
-            raise not_ported("serving a VLM (patch embeddings, M-RoPE)", 10)
         t0 = time.perf_counter()
         batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64),
                                            device=self.device)[None]}
+        if self.cfg.family == "vlm":
+            npatch = max(1, int(P * self.cfg.vision_patches_frac))
+            batch["patch_embeds"] = torch.zeros(1, npatch, self.cfg.d_model,
+                                                device=self.device)
+            pos = torch.arange(P, device=self.device)[None]
+            batch["positions3"] = torch.stack([pos, pos, pos])
         logits, one_caches = self.api.prefill(self.params, self.cfg, batch,
                                               cache_len=self.max_len,
                                               cache_dtype=self.cache_dtype)

@@ -1,8 +1,16 @@
-"""The MoE and hybrid LM stacks of repro_torch (``models/lm.py`` with
-``attn_moe``, ``mamba2`` and ``shared_attn`` blocks, ``ServeEngine``)
-against the JAX package's on the CPU, at the smoke configs of
-olmoe-1b-7b, phi3.5-moe and zamba2-2.7b; and the ports of
-``tests/integration/test_arch_smoke.py`` for every arch the port carries.
+"""The MoE, hybrid, xLSTM, VLM and large dense LM stacks of repro_torch
+(``models/lm.py`` with ``attn_moe``, ``mamba2``, ``shared_attn``,
+``mlstm`` and ``slstm`` blocks and M-RoPE, ``ServeEngine``) against the
+JAX package's on the CPU, at the smoke configs of olmoe-1b-7b, phi3.5-moe,
+zamba2-2.7b, xlstm-1.3b, qwen2-vl-7b, llama3-405b and mistral-large-123b;
+the ports of ``tests/integration/test_arch_smoke.py`` for every arch the
+port carries; and ``chip_smoke.py``'s parameter and K6-launch counts
+against the parameter tree and a counted decode step.
+
+A VLM batch (qwen2-vl) carries numpy-seeded patch embeddings over the
+first quarter of the positions and three unequal M-RoPE streams (t, t // 4,
+t % 4 from a per-row offset); the engine admits requests as the
+reference's does (zero patch embeddings, equal streams).
 
 Weights are the JAX package's ``init_params`` carried across by
 ``params_from_jax``; tokens come from numpy seeds.  Tolerances:
@@ -25,6 +33,8 @@ Weights are the JAX package's ``init_params`` carried across by
   order), so the dense isolation test does not carry over.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,13 +47,16 @@ from repro.models.registry import get_config as r_get_config
 from repro.serve import Request as RRequest
 from repro.serve import ServeEngine as RServeEngine
 from repro_torch.fed import tree_leaves, tree_unflatten
+from repro_torch.models import blocks as PB
 from repro_torch.models import lm as PLM
 from repro_torch.models.registry import ARCH_IDS, get_config, model_api
 from repro_torch.serve import Request, ServeEngine
 
-ARCHS = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b")
+ARCHS = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
+         "xlstm-1.3b", "qwen2-vl-7b", "llama3-405b", "mistral-large-123b")
 TOL = 1e-4
 P, L, STEPS = 40, 64, 3
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -75,6 +88,27 @@ def _model(arch):
     return _MODELS[arch]
 
 
+def _vlm_leaves(cfg, B, S, seed=9):
+    """A VLM batch's extra leaves as numpy: patch embeddings (B, S // 4, D)
+    and positions3 (3, B, S) = (t, t // 4, t % 4) from a per-row
+    offset."""
+    if cfg.family != "vlm":
+        return {}
+    rng = np.random.default_rng(seed)
+    t = np.arange(S) + rng.integers(0, 50, (B, 1))
+    return {"patch_embeds": rng.standard_normal(
+                (B, int(S * cfg.vision_patches_frac),
+                 cfg.d_model)).astype(np.float32),
+            "positions3": np.stack([t, t // 4, t % 4]).astype(np.int32)}
+
+
+def _both(batch):
+    """A numpy batch as the reference's (jnp) and the port's (torch)."""
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in batch.items()})
+
+
 def _assert_caches(rcaches, pcaches, tol):
     assert len(rcaches) == len(pcaches)
     for rc, pc in zip(rcaches, pcaches):
@@ -93,12 +127,12 @@ def _assert_caches(rcaches, pcaches, tol):
 def test_prefill_and_decode_match_repro(arch):
     rcfg, pcfg, rparams, pparams = _model(arch)
     toks = np.random.default_rng(3).integers(0, rcfg.vocab, (2, P))
-    toks = toks.astype(np.int32)
-    rl, rc = jax.jit(lambda p, t: RLM.prefill(
-        p, rcfg, {"tokens": t}, cache_len=L, cache_dtype=jnp.float32))(
-            rparams, jnp.asarray(toks))
-    pl, pc = PLM.prefill(pparams, pcfg, {"tokens": torch.from_numpy(toks)},
-                         cache_len=L, cache_dtype=torch.float32)
+    rb, pb = _both({"tokens": toks.astype(np.int32),
+                    **_vlm_leaves(rcfg, 2, P)})
+    rl, rc = jax.jit(lambda p, b: RLM.prefill(
+        p, rcfg, b, cache_len=L, cache_dtype=jnp.float32))(rparams, rb)
+    pl, pc = PLM.prefill(pparams, pcfg, pb, cache_len=L,
+                         cache_dtype=torch.float32)
     torch.testing.assert_close(pl, _t(rl), rtol=TOL, atol=TOL)
     _assert_caches(rc, pc, TOL)
     rdec = jax.jit(lambda p, t, c, po: RLM.decode_step(p, rcfg, t, c, po))
@@ -125,15 +159,16 @@ def test_loss_and_grads_match_repro(arch):
     rcfg, pcfg, rparams, pparams = _model(arch)
     rng = np.random.default_rng(11)
     tok = rng.integers(0, rcfg.vocab, (2, 49)).astype(np.int32)
-    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+             **_vlm_leaves(rcfg, 2, 48)}
+    rb, pb = _both(batch)
     l_ref, g_ref = jax.jit(jax.value_and_grad(
         lambda p, b: RLM.loss_train(p, rcfg, b, aux_weight=0.5)))(
-            rparams, {k: jnp.asarray(v) for k, v in batch.items()})
+            rparams, rb)
     g_ref = [np.asarray(g, np.float32) for g in jax.tree.leaves(g_ref)]
     xs = [w.clone().requires_grad_(True) for w in tree_leaves(pparams)]
-    loss = model_api(pcfg).loss_train(
-        tree_unflatten(pparams, xs), pcfg,
-        {k: torch.from_numpy(v) for k, v in batch.items()}, aux_weight=0.5)
+    loss = model_api(pcfg).loss_train(tree_unflatten(pparams, xs), pcfg, pb,
+                                      aux_weight=0.5)
     grads = torch.autograd.grad(loss, xs)
     assert abs(float(loss.detach()) - float(l_ref)) <= 1e-5 * abs(float(l_ref))
     assert len(grads) == len(g_ref)
@@ -150,7 +185,8 @@ def test_forward_hidden_aux_matches_repro(arch):
     zamba2, which has none)."""
     rcfg, pcfg, rparams, pparams = _model(arch)
     toks = np.random.default_rng(6).integers(0, rcfg.vocab, (2, 33))
-    pos = np.broadcast_to(np.arange(33, dtype=np.int32), (2, 33))
+    pos = _vlm_leaves(rcfg, 2, 33).get(
+        "positions3", np.broadcast_to(np.arange(33, dtype=np.int32), (2, 33)))
     rh, raux = jax.jit(lambda p, t, po: RLM.forward_hidden(
         p, rcfg, p["embed"][t], po))(rparams, jnp.asarray(toks),
                                      jnp.asarray(pos))
@@ -162,10 +198,13 @@ def test_forward_hidden_aux_matches_repro(arch):
     assert (float(paux) > 0) == (pcfg.family == "moe")
 
 
-@pytest.mark.parametrize("arch", ("olmoe-1b-7b", "zamba2-2.7b"))
+@pytest.mark.parametrize("arch", ("olmoe-1b-7b", "zamba2-2.7b", "xlstm-1.3b",
+                                  "qwen2-vl-7b", "llama3-405b",
+                                  "mistral-large-123b"))
 def test_engine_tokens_match_repro(arch):
     """Three requests on two slots (one slot reused), f32 cache: the
-    port's engine emits the reference engine's tokens."""
+    port's engine emits the reference engine's tokens (a VLM request
+    admitted with its patch embeddings and M-RoPE streams)."""
     rcfg, pcfg, rparams, pparams = _model(arch)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, rcfg.vocab, n).astype(np.int32)
@@ -300,8 +339,15 @@ def test_decode_matches_prefill_continuation():
 # ---------------------------------------------------------------------------
 def _batch(cfg, B=2, S=64):
     gen = torch.Generator().manual_seed(0)
-    return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen),
-            "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if cfg.family == "vlm":
+        npatch = int(S * cfg.vision_patches_frac)
+        batch["patch_embeds"] = torch.randn(B, npatch, cfg.d_model,
+                                            generator=gen)
+        pos = torch.arange(S).expand(B, S)
+        batch["positions3"] = torch.stack([pos, pos, pos])
+    return batch
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -353,12 +399,16 @@ def test_param_counts_sane():
     approx = {"qwen3-1.7b": (1.2e9, 2.6e9), "gemma3-4b": (3e9, 6e9),
               "olmoe-1b-7b": (5e9, 9e9),
               "phi3.5-moe-42b-a6.6b": (3.4e11 / 10, 6e10),
-              "zamba2-2.7b": (1.8e9, 4e9)}
+              "zamba2-2.7b": (1.8e9, 4e9),
+              "mistral-large-123b": (1.0e11, 1.4e11),
+              "llama3-405b": (3.6e11, 4.4e11), "xlstm-1.3b": (0.8e9, 2.4e9),
+              "qwen2-vl-7b": (6e9, 9.5e9)}
     assert sorted(approx) == sorted(ARCH_IDS)
     for arch, (lo, hi) in approx.items():
         n = get_config(arch).param_count()
         assert lo <= n <= hi, (arch, f"{n:.3g}")
-    for arch in ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"):
+    for arch in ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
+                 "llama3-405b", "mistral-large-123b"):
         cfg = get_config(arch, smoke=True)
         params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
         n = sum(t.numel() for t in tree_leaves(params))
@@ -366,8 +416,65 @@ def test_param_counts_sane():
             + 2 * cfg.n_layers * cfg.d_head * cfg.qk_norm
 
 
-def test_mlstm_still_raises():
-    cfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True),
-                              pattern=("mamba2", "mlstm"))
+@pytest.mark.parametrize("call", [
+    lambda: get_config("whisper-tiny"),
+    lambda: PB.layernorm(torch.zeros(2, 4), torch.ones(4), torch.zeros(4)),
+    lambda: model_api(dataclasses.replace(get_config("qwen3-1.7b",
+                                                     smoke=True),
+                                          encdec=True)),
+], ids=["whisper-tiny", "layernorm", "encdec"])
+def test_whisper_still_raises(call):
+    """Whisper is the one arch of the JAX package not carried: its config,
+    its LayerNorm and the encoder-decoder model raise naming item 10."""
     with pytest.raises(NotImplementedError, match="item 10"):
-        PLM.init_params(cfg, torch.Generator())
+        call()
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's counts from a config, against the tree and a decode step
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_tree_count_matches_the_tree(arch):
+    """``chip_smoke.param_tree_count`` counts the parameters of the port's
+    tree at each smoke config and the reference's abstract tree at each
+    full config (xlstm-1.3b 3,468,498,944, qwen2-vl-7b 7,070,490,112)."""
+    count = _chip_smoke().param_tree_count
+    cfg = get_config(arch, smoke=True)
+    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
+    assert count(cfg) == sum(t.numel() for t in tree_leaves(params))
+    full = RLM.abstract_params(r_get_config(arch))
+    assert count(get_config(arch)) == sum(
+        int(np.prod(a.shape)) for a in jax.tree.leaves(full))
+    want = {"xlstm-1.3b": 3_468_498_944, "qwen2-vl-7b": 7_070_490_112}
+    if arch in want:
+        assert count(get_config(arch)) == want[arch]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_k6_layers_counts_decode_launches(arch, monkeypatch):
+    """``chip_smoke.k6_layers`` is the number of flash-decode (K6) calls a
+    decode step makes at each smoke config: one an attention layer, none
+    for mamba2, mlstm and slstm layers."""
+    cfg = get_config(arch, smoke=True)
+    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    real = PB.flash_decode
+    monkeypatch.setattr(PB, "flash_decode", counting)
+    with torch.no_grad():
+        _, caches = PLM.prefill(params, cfg, _batch(cfg, 1, 8),
+                                cache_len=12)
+        PLM.decode_step(params, cfg, torch.zeros(1, 1, dtype=torch.int64),
+                        caches, torch.full((1, 1), 8))
+    assert len(calls) == _chip_smoke().k6_layers(cfg)
+    assert (len(calls) == 0) == (arch == "xlstm-1.3b")

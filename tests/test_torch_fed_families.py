@@ -1,8 +1,11 @@
-"""The federated GenQSGD round of repro_torch at the MoE and hybrid smoke
-configs (olmoe-1b-7b and zamba2-2.7b) against the JAX package's, on the
-CPU, with the real loss: the router's aux term (``FedConfig.aux_weight``)
-for olmoe, the mamba2 blocks and zamba2's weight-shared attention for
-zamba2.
+"""The federated GenQSGD round of repro_torch at the MoE, hybrid, xLSTM and
+VLM smoke configs (olmoe-1b-7b, zamba2-2.7b, xlstm-1.3b and qwen2-vl-7b)
+against the JAX package's, on the CPU, with the real loss: the router's
+aux term (``FedConfig.aux_weight``) for olmoe, the mamba2 blocks and
+zamba2's weight-shared attention for zamba2, the mLSTM and sLSTM blocks
+for xlstm, and for qwen2-vl patch embeddings and unequal M-RoPE streams
+at ``microbatch`` 2 (positions3 (3, B, S) split on its batch axis, as the
+reference splits it).
 
 The JAX package's ``make_round_fn`` runs the cases of
 ``tests/torch_fed_cases.py``'s ``FAMILY_CASES`` on a (2, 1, 1) CPU mesh in

@@ -49,7 +49,10 @@ _SLICE_MODULES = (
     "repro_torch.train.checkpoint", "repro_torch.data.synthetic",
     "repro_torch.data.federated", "repro_torch.models.moe",
     "repro_torch.models.mamba2", "repro_torch.configs.olmoe_1b_7b",
-    "repro_torch.configs.phi35_moe", "repro_torch.configs.zamba2_2_7b")
+    "repro_torch.configs.phi35_moe", "repro_torch.configs.zamba2_2_7b",
+    "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
+    "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.llama3_405b",
+    "repro_torch.configs.mistral_large_123b")
 
 
 def test_port_imports_without_jax_or_repro():

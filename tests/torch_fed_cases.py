@@ -53,10 +53,11 @@ CASES = {
     "elias": (dict(Kn=(1, 2), s0=7, sn=(5, 7), wire="elias"), "tiny",
               "stub", None),
 }
-#: the rounds at the MoE and hybrid smoke configs: the real loss (the
-#: router's aux term included) with exact workers and server, and the stub
-#: loss on the same trees through the int8 wire (the aggregation alone);
-#: their reference runs in a subprocess of its own
+#: the rounds at the MoE, hybrid, xLSTM and VLM smoke configs: the real
+#: loss (the router's aux term included; the VLM's at ``microbatch`` 2, so
+#: positions3 (3, B, S) is split on its batch axis) with exact workers and
+#: server, and the stub loss on the same trees through the int8 wire (the
+#: aggregation alone); their reference runs in a subprocess of its own
 FAMILY_CASES = {
     "olmoe": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "olmoe",
               "real", None),
@@ -64,10 +65,17 @@ FAMILY_CASES = {
     "zamba2": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "zamba2",
                "real", None),
     "zamba2_int8": (dict(_Q, wire="int8"), "zamba2", "stub", None),
+    "xlstm": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "xlstm",
+              "real", None),
+    "xlstm_int8": (dict(_Q, wire="int8"), "xlstm", "stub", None),
+    "qwen2vl_micro": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32",
+                           microbatch=2), "qwen2vl", "real", None),
+    "qwen2vl_int8": (dict(_Q, wire="int8"), "qwen2vl", "stub", None),
 }
 #: tree name -> the arch whose smoke config it is
 ARCHS = {"stub": "qwen3-1.7b", "qwen": "qwen3-1.7b", "olmoe": "olmoe-1b-7b",
-         "zamba2": "zamba2-2.7b"}
+         "zamba2": "zamba2-2.7b", "xlstm": "xlstm-1.3b",
+         "qwen2vl": "qwen2-vl-7b"}
 #: cases run in the port only, each held bitwise against a case of another
 #: wire at the same quantizers (the reference's rounds are keyed by "f32")
 PORT_ONLY = {
@@ -101,11 +109,23 @@ def stub_tree():
             "blocks": [{"wz": f(3, 16, 24), "ln": f(24)}], "a": f(1000)}
 
 
-def batch_for(fed: dict, vocab: int) -> dict:
-    """(fl, K_max, B, S) tokens and next-token labels, NumPy-seeded."""
+def batch_for(fed: dict, cfg) -> dict:
+    """(fl, K_max, B, S) tokens and next-token labels, NumPy-seeded; for a
+    VLM also patch embeddings (fl, K_max, B, S // 4, D) and M-RoPE streams
+    (fl, K_max, 3, B, S) = (t, t // 4, t % 4), t offset per row."""
     rng = np.random.default_rng(3)
-    t = rng.integers(0, vocab, (FL, max(fed["Kn"]), 4, 33)).astype(np.int32)
-    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    lead = (FL, max(fed["Kn"]))
+    t = rng.integers(0, cfg.vocab, lead + (4, 33)).astype(np.int32)
+    batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+    if cfg.family == "vlm":
+        S = 32
+        batch["patch_embeds"] = rng.standard_normal(
+            lead + (4, int(S * cfg.vision_patches_frac), cfg.d_model)
+        ).astype(np.float32)
+        pos = np.arange(S) + rng.integers(0, 50, lead + (4, 1))
+        batch["positions3"] = np.stack([pos, pos // 4, pos % 4],
+                                       axis=2).astype(np.int32)
+    return batch
 
 
 def _coef(i: int) -> float:
@@ -164,8 +184,7 @@ def reference(out: str, families: bool = False) -> None:
         rnd = jax.jit(make_round_fn(
             model_api(cfg) if api == "real" else StubApi(stub_loss_jax),
             cfg, fed, mesh))
-        batch = {k: jnp.asarray(v)
-                 for k, v in batch_for(fed_kw, cfg.vocab).items()}
+        batch = {k: jnp.asarray(v) for k, v in batch_for(fed_kw, cfg).items()}
         args = (params, batch, key, jnp.float32(GAMMA))
         if u is not None:
             args += (jnp.asarray(u, jnp.float32),)
@@ -197,8 +216,7 @@ def port_round(case, x_hat, keys, transport=None):
     fed = FedConfig(n_workers=FL, **fed_kw)
     rnd = make_round_fn(model_api(cfg) if api == "real"
                         else StubApi(stub_loss_torch), cfg, fed, transport)
-    batch = {k: torch.from_numpy(v)
-             for k, v in batch_for(fed_kw, cfg.vocab).items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(fed_kw, cfg).items()}
     x_new, m = rnd(x_hat, batch, keys[:FL], keys[FL], GAMMA, u)
     flat = torch.cat([l.reshape(-1).to(torch.float32)
                       for l in tree_leaves(x_new)])
