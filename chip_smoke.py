@@ -152,13 +152,17 @@ Phases, each of which fails the script on error:
      G = 1, dh 80), and at dh 80 bf16 and f32 caches, ragged C, one valid
      token, an all-masked row, C in {5, 9}, one split, G = 8 and 16;
      qwen2-vl-7b's serving shape (4 kv heads, G = 7) and G = 3 at dh 64
-     (mistral-large-smoke's grouping); each shape called twice, the
+     (mistral-large-smoke's grouping); whisper-tiny's two decode shapes
+     (6 kv heads, G = 1, dh 64, 1,500 positions): its self-attention over
+     the bf16 cache and its cross-attention over f32 K/V of the encoder
+     frames, every frame valid; each shape called twice, the
      outputs bitwise equal; q (serving shape) and q, k, v (G = 7 ragged)
      one element past a 16-byte boundary, bitwise the aligned call.  Then
      its time at the serving, the gemma3-width, the G = 16, the olmoe, the
-     zamba2 and the qwen2-vl shapes beside its byte bound, its plain
-     version and ``scaled_dot_product_attention``, with the blocks the
-     card keeps resident;
+     zamba2, the qwen2-vl and both whisper shapes beside its byte bound,
+     its plain version and ``scaled_dot_product_attention`` (no mask where
+     every entry is valid), with the blocks the card keeps resident; each
+     timed over input sets taken in turn that together span 4 x L2;
   9. the LM serving path: ``ServeEngine(params, qwen3-1.7b, slots=8,
      max_len=4096)`` at full width (28 layers, d_model 2048, vocab
      151,936; f32 weights from ``lm.init_params`` with a seeded generator,
@@ -189,13 +193,25 @@ Phases, each of which fails the script on error:
      never launches; the profile adds the mLSTM and sLSTM decodes' device
      time; one mLSTM and one sLSTM layer timed on a 2,047-token prefill;
      its cut is 8 layers, 7 mLSTM and 1 sLSTM, and also checks a
-     512-token prompt, whose mLSTM layers run the chunked form), each
-     with its peak device memory;
+     512-token prompt, whose mLSTM layers run the chunked form) and
+     whisper-tiny (4 encoder and 4 decoder layers, d_model 384, vocab
+     51,865, 41,158,272 parameters; its own shape, within its 448-token
+     decoder context: max_len 1,500 = max_source_positions, prompts of
+     4-224 tokens, 32 new; requests admitted with zero frames (1, 1500,
+     384) as ``repro``'s engine admits them; K6 8 launches a
+     step, the self-attention over the bf16 cache and the cross-attention
+     over f32 K/V recomputed from the encoder states each step, two
+     kernel instances; the profile adds the cross K/V products' device
+     time, ``whisper.cross_kv``; its check runs the whole model, random
+     frames from the seed), each with its peak device memory;
  10. LM training through the federated GenQSGD round (``phase_spmd``):
      (a) ``loss_train`` and its gradients at qwen3-smoke and gemma3-smoke
      (window mask), olmoe-smoke and phi35-moe-smoke (the MoE MLP and its
-     aux loss), zamba2-smoke, xlstm-smoke and qwen2-vl-smoke (patch
-     embeddings, unequal M-RoPE streams) on the card against the same
+     aux loss), zamba2-smoke, xlstm-smoke, qwen2-vl-smoke (patch
+     embeddings, unequal M-RoPE streams) and whisper-smoke (bf16 frames
+     of min(F, S) rows, as ``repro``'s launcher declares them: at f32
+     they promote to f32) on the card against
+     the same
      code on the CPU, f32 with TF32 off (loss and every gradient leaf
      within 1e-5, 5e-5 for zamba2's SSM sums, 1e-4 for xlstm's, routing
      equal) and under the bf16 view
@@ -224,10 +240,16 @@ Phases, each of which fails the script on error:
      of 2) and faulted run whose FaultTrace and cohort bits equal the
      CPU's; (e) one round at olmoe-smoke, zamba2-smoke, xlstm-smoke and
      qwen2-vl-smoke (``microbatch`` 2: positions3 split on its batch axis
-     on the card), trained once and aggregated through the f32 and int8
-     wires (s0 = sn = 7): x̂' bitwise across the wires, K1/K2 2 and K3 1
-     launches a leaf an aggregate and no plain version, comm bits =
-     ``round_comm_bits``.
+     on the card) and whisper-smoke, trained once and aggregated through
+     the f32 and int8 wires (s0 = sn = 7): x̂' bitwise across the wires,
+     K1/K2 2 and K3 1 launches a leaf an aggregate and no plain version,
+     comm bits = ``round_comm_bits``;
+ 11. whisper-tiny as published (41,158,272 parameters in 26 leaves)
+     through 10 (b)'s protocol, with bf16 frames (2, 1024, 384) a step
+     from the seed (min(F, S) rows, as ``repro``'s launcher declares
+     them), one round through the f32 and the int8 wire: x̂' bitwise
+     across them, K1/K2 104 and K3 52 launches, ms a round, busy share,
+     peak memory.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -365,18 +387,22 @@ SPMD_WIRES = ("f32", "int8", "int4", "rs_ag")
 #: int8 wires
 SPMD_LOSS_ARCHS = ("qwen3-1.7b", "gemma3-4b", "olmoe-1b-7b",
                    "phi3.5-moe-42b-a6.6b", "zamba2-2.7b", "xlstm-1.3b",
-                   "qwen2-vl-7b")
+                   "qwen2-vl-7b", "whisper-tiny")
 SPMD_FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b", "xlstm-1.3b",
-                     "qwen2-vl-7b")
+                     "qwen2-vl-7b", "whisper-tiny")
+#: phase 11: whisper-tiny at full width, one round through the f32 and the
+#: int8 wire
+SPMD_AUDIO_ARCH = "whisper-tiny"
 #: (e)'s micro-batch splits a step, by arch (qwen2-vl's positions3 is then
 #: split on its batch axis on the card)
 SPMD_MICROBATCH = {"qwen2-vl-7b": 2}
 SPMD_ROUNDS = 2
 SPMD_GAMMA = 0.01
-#: the MoE, hybrid, VLM and xLSTM serving paths (phase 9 again), each with
-#: the depth of its card-against-CPU check (xlstm's 8: 7 mLSTM, 1 sLSTM)
+#: the MoE, hybrid, VLM, xLSTM and audio serving paths (phase 9 again),
+#: each with the depth of its card-against-CPU check (xlstm's 8: 7 mLSTM,
+#: 1 sLSTM; whisper-tiny's 4, its whole decoder over its 4-layer encoder)
 SERVE_FAMILIES = (("olmoe-1b-7b", 2), ("zamba2-2.7b", 6), ("qwen2-vl-7b", 2),
-                  ("xlstm-1.3b", 8))
+                  ("xlstm-1.3b", 8), ("whisper-tiny", 4))
 #: the check's prompt lengths: 64 tokens; at a config with mLSTM layers
 #: also 512 (two chunks of 256: the chunked form runs on the card), held
 #: within SERVE_XLSTM_TOL and beside the same cut with float64 weights on
@@ -387,12 +413,24 @@ SERVE_CHECK_PROMPTS = (64, 512)
 SERVE_XLSTM_TOL = 5e-3
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (256, 2048), 32
+#: an arch's own (max_len, prompt lengths, new tokens) where the uniform
+#: shape above does not fit the model.  whisper-tiny's decoder context is
+#: n_text_ctx = 448 tokens (Whisper, arXiv:2212.04356, the released model
+#: dimensions), and its decoder takes at most half of it as a prompt of
+#: earlier text: prompts of 4-224 tokens and 32 new fit 448.  Its max_len
+#: is max_source_positions, 1,500, the least an encoder-decoder engine
+#: takes (the encoder leaf holds min(F, max_len) rows), so the
+#: self-attention cache holds 1,500 positions
+SERVE_SHAPES = {"whisper-tiny": (1500, (4, 224), 32)}
 #: K6's check shapes (name, B, C, KV, G, dh, q type, cache type, mask):
 #: the serving shape first; masks "prefix" (a random length valid per row,
-#: as a cache filled from position 0), "window" (a 1024-token band before a
-#: random query position), "one" (one valid entry a row), "none-row0" (row
-#: 0 fully masked, the others prefixes), "one-split" (row 0 valid only
-#: inside the range of one split of the cache, the others prefixes)
+#: as a cache filled from position 0), "prefix448" (the same, at most 448
+#: valid: whisper's decoder context), "all" (every entry valid: whisper's
+#: cross-attention over its encoder states), "window" (a 1024-token band
+#: before a random query position), "one" (one valid entry a row),
+#: "none-row0" (row 0 fully masked, the others prefixes), "one-split" (row
+#: 0 valid only inside the range of one split of the cache, the others
+#: prefixes)
 K6_SHAPES = (
     ("serving", 8, 4096, 8, 2, 128, "f32", "bf16", "prefix"),
     ("serving f32 cache", 8, 4096, 8, 2, 128, "f32", "f32", "prefix"),
@@ -428,12 +466,21 @@ K6_SHAPES = (
     # the GB = 4 instance, dh 64)
     ("qwen2-vl", 8, 4096, 4, 7, 128, "f32", "bf16", "prefix"),
     ("G=3 dh=64", 3, 1000, 2, 3, 64, "f32", "bf16", "prefix"),
+    # whisper-tiny's two decode shapes (6 kv heads, G = 1, dh 64, the
+    # engine's 1,500 positions): the self-attention over its bf16 cache
+    # (prompts and new tokens within 448: a short valid prefix) and the
+    # cross-attention over f32 K/V of 1,500 encoder frames (tiles of 16
+    # positions, 192 a split, a ragged last split of 156)
+    ("whisper self", 8, 1500, 6, 1, 64, "f32", "bf16", "prefix448"),
+    ("whisper cross", 8, 1500, 6, 1, 64, "f32", "f32", "all"),
 )
 #: K6's timed shapes: the serving shape (the JSON line's row), two other
 #: widths and the other serving paths' shapes
 K6_TIMED = ("serving", "gemma3 width", "G=16", "olmoe", "zamba2 dh=80",
-            "qwen2-vl")
+            "qwen2-vl", "whisper self", "whisper cross")
 K6_TOL = 1e-5
+#: K6's timed input sets span this many times the card's L2 together
+K6_L2_SPAN = 4
 K6_WINDOW = 1024
 REPLACES = {
     "qsgd_sumsq": "src/repro/kernels/qsgd.py:143",
@@ -486,18 +533,22 @@ def eager_ms(fn, reps: int = 50, trials: int = 5) -> float:
 def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
     """Device time of one call: ``reps`` calls captured in a CUDA graph and
     replayed, so no host work sits between the kernels; median over
-    ``trials`` replays, by CUDA events, after a warm-up."""
+    ``trials`` replays, by CUDA events, after a warm-up.  ``fn`` may be a
+    list of calls, each on its own inputs: the graph then takes them in
+    turn, so inputs larger together than L2 are read from HBM."""
     import torch
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            fn()
+            for f in fns:
+                f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     out = []
@@ -2818,12 +2869,15 @@ def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
     v = torch.randn(B, C, KV, dh, generator=gen, device=dev).to(
         types[kv_type])
     cpos = torch.arange(C, device=dev).expand(B, C)
-    lens = torch.randint(1, C + 1, (B, 1), generator=gen, device=dev)
+    lens = torch.randint(1, (448 if mask == "prefix448" else C) + 1, (B, 1),
+                         generator=gen, device=dev)
     if mask == "window":
         q_pos = torch.randint(0, C, (B, 1), generator=gen, device=dev)
         valid = (cpos <= q_pos) & (cpos > q_pos - K6_WINDOW)
     elif mask == "one":
         valid = cpos == lens - 1
+    elif mask == "all":
+        valid = torch.ones(B, C, dtype=torch.bool, device=dev)
     else:
         valid = cpos < lens
         if mask == "none-row0":
@@ -2840,26 +2894,34 @@ def k6_inputs(B, C, KV, G, dh, q_type, kv_type, mask, dev, gen):
 
 def k6_sdpa(q, k, v, valid):
     """The yardstick: one ``scaled_dot_product_attention`` call, (B, heads,
-    1, dh) against (B, KV, C, dh) views of the cache with a boolean mask;
-    SDPA takes one type for q, k, v, so q is cast to the cache's type
-    beforehand.  -> (call, what)."""
+    1, dh) against (B, KV, C, dh) views of the cache with a boolean mask,
+    or with no mask where every entry is valid (the same function, and
+    SDPA's fused backends take it); ``enable_gqa`` only where G > 1 (at
+    G = 1 the heads already pair up).  SDPA takes one type for q, k, v, so
+    q is cast to the cache's type beforehand.  -> (call, what)."""
     import torch.nn.functional as F
     B, KV, G, dh = q.shape
     qs = q.to(k.dtype).reshape(B, KV * G, 1, dh)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    ms4 = valid[:, None, None, :]
+    ms4 = None if bool(valid.all()) else valid[:, None, None, :]
+    what = ("no mask" if ms4 is None else "a boolean mask") \
+        + ", q in the cache's type"
+    if G == 1:
+        return (lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       attn_mask=ms4),
+                f"sdpa, {what}")
     try:
         F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms4,
                                        enable_gqa=True)
         return (lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=ms4, enable_gqa=True),
-            "sdpa(enable_gqa=True), q in the cache's type")
+            f"sdpa(enable_gqa=True), {what}")
     except TypeError:              # no enable_gqa: kv heads expanded first
         ke = ks.repeat_interleave(G, dim=1)
         ve = vs.repeat_interleave(G, dim=1)
         return (lambda: F.scaled_dot_product_attention(qs, ke, ve,
                                                        attn_mask=ms4),
-                "sdpa on kv heads expanded G times, q in the cache's type")
+                f"sdpa on kv heads expanded G times, {what}")
 
 
 def k6_query(what: str, q, k) -> int:
@@ -2969,6 +3031,8 @@ def phase_flash_decode(dev) -> dict:
             f"bitwise the aligned call, agrees with the plain version")
 
     main = {}
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2**20)
     for name, B, C, KV, G, dh, qt, kvt, mask in K6_SHAPES:
         if name not in K6_TIMED:
             continue
@@ -2976,26 +3040,31 @@ def phase_flash_decode(dev) -> dict:
         kv_bytes = 2 * k.numel() * k.element_size()
         nbytes = kv_bytes + 2 * q.numel() * q.element_size() + valid.numel()
         bnd, by = bound_ms(nbytes, 4 * B * KV * G * C * dh)
-        lib, lib_what = k6_sdpa(q, k, v, valid)
-
-        def kern():
-            return FD.flash_decode(q, k, v, valid)
-
-        def plain():
-            return FD.flash_decode_plain(q, k, v, valid)
-
+        # sets of inputs taken in turn, K6_L2_SPAN times L2 together, so
+        # that no call finds its inputs in L2 from the call before
+        n_sets = max(2, -(-K6_L2_SPAN * l2 // nbytes))
+        sets = [(q, k, v, valid)] + [
+            k6_inputs(B, C, KV, G, dh, qt, kvt, mask, dev, gen)
+            for _ in range(n_sets - 1)]
+        kern = [lambda a=a: FD.flash_decode(*a) for a in sets]
+        plain = [lambda a=a: FD.flash_decode_plain(*a) for a in sets]
+        libs = [k6_sdpa(*a) for a in sets]
+        lib, lib_what = [c for c, _ in libs], libs[0][1]
         ms, pl, lb = device_ms(kern), device_ms(plain), device_ms(lib)
         blocks = FD.SPLITS * KV * B
         slots = k6_query("flash_decode_blocks_per_sm", q, k) \
             * torch.cuda.get_device_properties(0).multi_processor_count
         log(f"[time] flash_decode {name} B={B} C={C} KV={KV} G={G} dh={dh} "
             f"q {qt} cache {kvt}: kernel {ms * 1e3:.2f} us (eager call "
-            f"{eager_ms(kern) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, "
+            f"{eager_ms(kern[0]) * 1e3:.2f} us), plain {pl * 1e3:.2f} us, "
             f"library {lb * 1e3:.2f} us ({lib_what}), bound "
             f"{bnd * 1e3:.2f} us ({by}; K/V alone "
             f"{kv_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), "
             f"{bnd / ms * 100:.1f}% of the bound; {blocks} blocks, {slots} "
-            f"resident at once ({-(-blocks // max(slots, 1))} wave(s))")
+            f"resident at once ({-(-blocks // max(slots, 1))} wave(s)); "
+            f"{n_sets} input sets in turn ({n_sets * nbytes / 2**20:.0f} "
+            f"MiB, L2 {l2 / 2**20:.0f} MiB)")
+        del sets, kern, plain, libs, lib
         if name == "serving":
             main["flash_decode"] = (ms, pl, lb, (bnd, by))
     return {"worst": {"flash_decode": worst}, "main": main}
@@ -3017,6 +3086,22 @@ def vlm_leaves(cfg, gen, lead: tuple, B: int, S: int,
                 *lead, B, int(S * cfg.vision_patches_frac), cfg.d_model,
                 generator=gen, device=dev),
             "positions3": torch.stack([t, t // 4, t % 4], dim=len(lead))}
+
+
+def frame_leaves(cfg, gen, lead: tuple, B: int, S: int = 0) -> dict:
+    """An encoder-decoder's frames on the generator's device ({} for other
+    families), from N(0, 1), the stub conv frontend's output: with ``S``
+    those of a training batch of S tokens as the JAX package's launcher
+    declares them (``src/repro/launch/specs.py``), (*lead, B, min(F, S),
+    D) bf16; else a served request's, (*lead, B, F, D) f32, F =
+    max_source_positions."""
+    import torch
+    if not cfg.encdec:
+        return {}
+    F = min(cfg.max_source_positions, S) if S else cfg.max_source_positions
+    x = torch.randn(*lead, B, F, cfg.d_model, generator=gen,
+                    device=gen.device)
+    return {"frames": x.to(torch.bfloat16) if S else x}
 
 
 def tree_cast(tree, dtype):
@@ -3045,16 +3130,24 @@ def tree_leaves(tree):
 
 
 def param_tree_count(cfg) -> int:
-    """The parameters of ``lm.init_params(cfg)``, counted from the config
-    alone: ``ArchConfig.param_count`` plus the final norm and the qk norms,
-    with mamba2's conv, A_log, D, dt_bias and out_norm added, zamba2's
-    shared block counted once (param_count counts it at every
-    ``shared_attn`` layer), and an xLSTM layer's tree for param_count's
+    """The parameters of ``model_api(cfg).init_params(cfg)``, counted from
+    the config alone: ``ArchConfig.param_count`` plus the final norm and
+    the qk norms, with mamba2's conv, A_log, D, dt_bias and out_norm added,
+    zamba2's shared block counted once (param_count counts it at every
+    ``shared_attn`` layer), an xLSTM layer's tree for param_count's
     estimate of it (which takes q, k, v as block-diagonal and has no gate,
-    bias or sLSTM feed-forward leaves)."""
+    bias or sLSTM feed-forward leaves), and for an encoder-decoder
+    (whisper, where param_count counts the decoder's self-attention
+    layers alone) the encoder's layers and norm and each decoder layer's
+    cross-attention and its norm."""
     D, dh = cfg.d_model, cfg.d_head
     qk = 2 * dh * cfg.qk_norm
     n = cfg.param_count() + D
+    if cfg.encdec:
+        attn = D * cfg.n_heads * dh + 2 * D * cfg.n_kv * dh \
+            + cfg.n_heads * dh * D + qk
+        n += cfg.enc_layers * (attn + 2 * D + 3 * D * cfg.d_ff) + D \
+            + cfg.n_layers * (attn + D + qk)
     for t in cfg.layer_types:
         if t == "mamba2":
             di = cfg.ssm_expand * D
@@ -3084,9 +3177,18 @@ def param_tree_count(cfg) -> int:
 
 def k6_layers(cfg) -> int:
     """K6 launches a decode step: one per attention layer (none for the
-    recurrent mamba2, mlstm and slstm layers)."""
-    return sum(c for t, c in cfg.segments
-               if t not in ("mamba2", "mlstm", "slstm"))
+    recurrent mamba2, mlstm and slstm layers), two per decoder layer of an
+    encoder-decoder (its self- and cross-attention)."""
+    n = sum(c for t, c in cfg.segments
+            if t not in ("mamba2", "mlstm", "slstm"))
+    return 2 * n if cfg.encdec else n
+
+
+def k6_instances(cfg) -> int:
+    """K6 kernels (template instances) a decode step launches over a bf16
+    cache: one, two for an encoder-decoder, whose cross-attention reads
+    f32 K/V."""
+    return 2 if cfg.encdec and k6_layers(cfg) else 1
 
 
 def span_device_us(prof, label: str) -> float:
@@ -3126,11 +3228,12 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
     counters read around the run; then ``check_cfg`` on ``dev`` against
     the CPU (a prompt of 64 tokens and 4 decode steps over an f32 and a
     bf16 cache; with mLSTM layers also one of 512 tokens over f32; a VLM
-    prompt with random patch embeddings and unequal M-RoPE streams)."""
+    prompt with random patch embeddings and unequal M-RoPE streams; an
+    encoder-decoder's random frames)."""
     import numpy as np
     import torch
-    from repro_torch.models import lm
     from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import model_api
     from repro_torch.serve import Request, ServeEngine
 
     dev = torch.device(dev)
@@ -3139,7 +3242,8 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    api = model_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     sync()
     n_params = sum(t.numel() for t in tree_leaves(params))
     if n_params != param_tree_count(cfg):
@@ -3207,8 +3311,8 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
         torch.cuda.empty_cache()
 
     # the same model cut in depth, on the card against the CPU
-    cparams = lm.init_params(check_cfg,
-                             torch.Generator(device=dev).manual_seed(1))
+    cparams = api.init_params(check_cfg,
+                              torch.Generator(device=dev).manual_seed(1))
     sides = (("card", dev, cparams),
              ("cpu", torch.device("cpu"), tree_to(cparams, "cpu")))
     runs = [(64, torch.float32, 1e-3), (64, torch.bfloat16, 3e-2)]
@@ -3227,13 +3331,15 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
                                                       (1, P)))
         batch = {"tokens": prompts[P],
                  **vlm_leaves(check_cfg, torch.Generator().manual_seed(P),
-                              (), 1, P)}
+                              (), 1, P),
+                 **frame_leaves(check_cfg, torch.Generator().manual_seed(P),
+                                (), 1)}
         logits = {name: [] for name, _, _ in run_sides}
         routes = {name: [] for name, _, _ in run_sides}
         caches = {}
         for name, where, p in run_sides:
             with MOE.recording_routes() as got:
-                lg, caches[name] = lm.prefill(
+                lg, caches[name] = api.prefill(
                     p, check_cfg, {k: v.to(where) for k, v in batch.items()},
                     cache_len=P + 64, cache_dtype=cache)
             routes[name] += got
@@ -3244,7 +3350,7 @@ def phase_serve(dev, cfg, slots: int, max_len: int, n_requests: int,
             pos = torch.full((1, 1), P + i)
             for name, where, p in run_sides:
                 with MOE.recording_routes() as got:
-                    lg, _ = lm.decode_step(p, check_cfg, tok.to(where),
+                    lg, _ = api.decode_step(p, check_cfg, tok.to(where),
                                            caches[name], pos.to(where))
                 routes[name] += got
                 logits[name].append(lg.float().cpu())
@@ -3322,17 +3428,19 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10,
     torch.profiler over ``steps`` steps: K6's share of device time, under
     MoE the router's, the dispatch's, the expert products' and the
     combine's, for a hybrid the mamba2 layers', for xLSTM the mLSTM and
-    sLSTM layers' (and no K6), and the device's busy share of the wall
-    time (returned).
+    sLSTM layers' (and no K6), for whisper the cross-attention's K/V
+    products, and the device's busy share of the wall time (returned).
 
-    K6's wrapper must count exactly one launch an attention layer a step
-    over the profiled steps, and the profile must show exactly those
-    launches under one kernel name. The profiler can lose a kernel's
+    K6's wrapper must count exactly ``k6_layers`` launches a step over the
+    profiled steps, and the profile must show exactly those launches under
+    ``k6_instances`` kernel names (whisper's self- and cross-attention
+    read a bf16 cache and f32 K/V: two instances). The profiler can lose a
+    kernel's
     activity record (a run of olmoe-1b-7b once recorded 159 of the 160
     launches its wrapper counted): when it records fewer launches than
     the wrapper counted, the steps are profiled again, ``attempts`` times
     at most."""
-    n_attn = k6_layers(cfg)
+    n_attn, n_names = k6_layers(cfg), k6_instances(cfg)
     for attempt in range(1, attempts + 1):
         prof, wall, labels, launches = _profile_decode_steps(
             eng, cfg, rng, slots, steps)
@@ -3341,8 +3449,9 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10,
             raise AssertionError(f"launches over the {steps} profiled "
                                  f"decode steps {launches} != expected "
                                  f"{want}")
-        # K6 is one kernel, launched once an attention layer a step (never
-        # on a stack without attention), with no combine
+        # K6 is one kernel a (q, cache) type pair, launched once an
+        # attention a step (never on a stack without attention), with no
+        # combine
         k6 = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and "flash_decode" in e.key]
@@ -3352,20 +3461,23 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10,
                                      f"attention layer: "
                                      f"{[e.key for e in k6]}")
             break
-        if len(k6) != 1 or k6[0].count > n_attn * steps:
+        seen = sum(e.count for e in k6)
+        if len(k6) != n_names or seen > n_attn * steps:
             raise AssertionError(f"K6 kernels in the decode profile: "
                                  f"{[(e.key, e.count) for e in k6]}, want "
-                                 f"one name launched {n_attn} times a step")
-        if k6[0].count == n_attn * steps:
+                                 f"{n_names} name(s) launched {n_attn} "
+                                 f"times a step")
+        if seen == n_attn * steps:
             break
         log(f"[profile] attempt {attempt}: the profiler recorded "
-            f"{k6[0].count} of the {n_attn * steps} K6 launches its "
+            f"{seen} of the {n_attn * steps} K6 launches its "
             f"wrapper counted")
         if attempt == attempts:
             raise AssertionError(
                 f"K6 kernels in the decode profile: "
                 f"{[(e.key, e.count) for e in k6]} in each of {attempts} "
-                f"profiles, want one name launched {n_attn} times a step")
+                f"profiles, want {n_names} name(s) launched {n_attn} times "
+                f"a step")
     events = log_device_time(prof, wall, steps, "step", exclude=labels)
     busy = sum(e.self_device_time_total for e in events)
     for label in labels:
@@ -3385,11 +3497,16 @@ def profile_decode(eng, cfg, rng, slots: int, steps: int = 10,
     if n_attn == 0:
         return busy / 1e6 / wall
     k6 = [e for e in events if "flash_decode" in e.key]
-    t6 = k6[0].self_device_time_total
+    t6 = sum(e.self_device_time_total for e in k6)
+    n6 = sum(e.count for e in k6)
     log(f"[profile] flash_decode {t6 / steps / 1e3:.3f} ms/step = "
         f"{t6 / max(busy, 1e-9) * 100:.1f}% of device time, "
-        f"{k6[0].count / steps:.0f} launches/step of one kernel "
-        f"({k6[0].key[:60]}), {t6 / k6[0].count:.2f} us a launch")
+        f"{n6 / steps:.0f} launches/step of {len(k6)} kernel(s), "
+        f"{t6 / n6:.2f} us a launch")
+    for e in k6:
+        log(f"[profile]   {e.count / steps:.0f} launches/step, "
+            f"{e.self_device_time_total / e.count:.2f} us a launch: "
+            f"{e.key[:90]}")
     return busy / 1e6 / wall
 
 
@@ -3417,6 +3534,8 @@ def _profile_decode_steps(eng, cfg, rng, slots: int, steps: int):
         labels = ["mamba2.decode"]
     if "mlstm" in cfg.layer_types:
         labels = ["xlstm.mlstm_decode", "xlstm.slstm_decode"]
+    if cfg.encdec:
+        labels = ["whisper.cross_kv"]
     torch.cuda.synchronize()
     reset_launches()
     with profile(
@@ -3511,9 +3630,11 @@ def spmd_loss_checks(dev) -> None:
     code on the CPU at the smoke configs (qwen3: full attention, gemma3:
     the window mask, olmoe and phi3.5-moe: the MoE MLP and its aux loss,
     zamba2: mamba2 and the shared block, xlstm: mLSTM and sLSTM, qwen2-vl:
-    patch embeddings and M-RoPE), f32 with TF32 off and under the bf16
-    view; the tokens whose routing differs between the two are counted
-    (none at f32)."""
+    patch embeddings and M-RoPE, whisper: the encoder over bf16 frames, as
+    the JAX package's launcher declares them, and the cross-attention;
+    at f32 the frames' products promote to f32), f32 with TF32 off and
+    under the bf16 view; the tokens
+    whose routing differs between the two are counted (none at f32)."""
     import numpy as np
     import torch
     from repro_torch.fed import tree_leaves
@@ -3529,7 +3650,9 @@ def spmd_loss_checks(dev) -> None:
                                .astype(np.int32))
         batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
                  **vlm_leaves(cfg, torch.Generator().manual_seed(1), (), 2,
-                              64, offset=50)}
+                              64, offset=50),
+                 **frame_leaves(cfg, torch.Generator().manual_seed(1), (),
+                                2, 64)}
         on_dev = {k: v.to(dev) for k, v in batch.items()}
         p_dev = tree_to(params, dev)
         # the SSM's gradients are sums of terms of both signs over every
@@ -3654,12 +3777,14 @@ def spmd_kernel_checks(fed, x0, pw, words, i: int, gamma) -> dict:
             "qsgd_dequant_apply": float((out - out_p).abs().max())}
 
 
-def spmd_full_width(dev, cfg) -> dict:
+def spmd_full_width(dev, cfg, wires=SPMD_WIRES,
+                    rounds: int = SPMD_ROUNDS) -> dict:
     """(b) ``cfg`` at full width: fl = 2 workers (Kn = (1, 2)), B x S of
-    uniform tokens on the device, s0 = sn = 7; each round's workers trained
-    once (``local_train``) and that one set of params aggregated through
-    every wire (``aggregate_apply``), x̂' bitwise across wires; launches
-    read around the rounds; comm bits and memory."""
+    uniform tokens on the device (and an encoder-decoder's bf16 frames),
+    s0 = sn = 7; each of ``rounds`` rounds' workers trained once
+    (``local_train``) and that one set of params aggregated through every
+    wire of ``wires`` (``aggregate_apply``), x̂' bitwise across wires;
+    launches read around the rounds; comm bits and memory."""
     import numpy as np
     import torch
     from repro_torch.data import uniform_lm_batch
@@ -3672,8 +3797,7 @@ def spmd_full_width(dev, cfg) -> dict:
     dev = torch.device(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     api = model_api(cfg)
-    fl, Kn, wires, rounds, gamma = (SPMD_FL, SPMD_KN, SPMD_WIRES,
-                                    SPMD_ROUNDS, SPMD_GAMMA)
+    fl, Kn, gamma = SPMD_FL, SPMD_KN, SPMD_GAMMA
     feds = {w: FedConfig(n_workers=fl, Kn=Kn, s0=SPMD_S_Q, sn=SPMD_S_Q,
                          wire=w) for w in wires}
     transport = LocalTransport(fl)
@@ -3696,8 +3820,10 @@ def spmd_full_width(dev, cfg) -> dict:
     plain, undo = count_plain_calls()
     try:
         for r in range(rounds):
-            batch = uniform_lm_batch(gen, (fl, max(Kn), SPMD_B, SPMD_S),
-                                     cfg.vocab)
+            batch = {**uniform_lm_batch(gen, (fl, max(Kn), SPMD_B, SPMD_S),
+                                        cfg.vocab),
+                     **frame_leaves(cfg, gen, (fl, max(Kn)), SPMD_B,
+                                    SPMD_S)}
             words = round_keys(keys, fl)
             sync()
             t0 = time.perf_counter()
@@ -3806,8 +3932,10 @@ def profile_spmd_round(api, cfg, fed, transport, x, gen, keys,
     from repro_torch.fed import aggregate_apply, local_train
     from repro_torch.train.trainer import round_keys
 
-    batch = uniform_lm_batch(gen, (fed.n_workers, fed.K_max, SPMD_B,
-                                   SPMD_S), cfg.vocab)
+    batch = {**uniform_lm_batch(gen, (fed.n_workers, fed.K_max, SPMD_B,
+                                      SPMD_S), cfg.vocab),
+             **frame_leaves(cfg, gen, (fed.n_workers, fed.K_max), SPMD_B,
+                            SPMD_S)}
     words = round_keys(keys, fed.n_workers)
     busy = wall = 0.0
     trained = []
@@ -4028,9 +4156,10 @@ def spmd_scenario(dev, cfg) -> dict:
 
 def spmd_family_rounds(dev, archs=SPMD_FAMILY_ARCHS) -> dict:
     """(e) one round at each smoke config of ``archs`` (MoE, hybrid, xLSTM,
-    VLM): fl = 2 workers (Kn = (1, 2)) trained once on ``dev`` (the
+    VLM, audio): fl = 2 workers (Kn = (1, 2)) trained once on ``dev`` (the
     router's aux term in the loss; a VLM batch with patch embeddings and
-    M-RoPE streams, at ``SPMD_MICROBATCH``), that one set of params
+    M-RoPE streams, at ``SPMD_MICROBATCH``; whisper's with bf16 frames),
+    that one set of params
     aggregated through the f32 and the int8 wire at s0 = sn = 7: x̂'
     bitwise across the wires, K1/K2 two launches and K3 one a leaf an
     aggregate and no plain version, comm bits exactly ``round_comm_bits``
@@ -4057,7 +4186,8 @@ def spmd_family_rounds(dev, archs=SPMD_FAMILY_ARCHS) -> dict:
         gen = torch.Generator(device=dev).manual_seed(2)
         x = api.init_params(cfg, gen)
         batch = {**uniform_lm_batch(gen, (fl, max(Kn), 4, 64), cfg.vocab),
-                 **vlm_leaves(cfg, gen, (fl, max(Kn)), 4, 64, offset=50)}
+                 **vlm_leaves(cfg, gen, (fl, max(Kn)), 4, 64, offset=50),
+                 **frame_leaves(cfg, gen, (fl, max(Kn)), 4, 64)}
         words = round_keys(np.random.default_rng(2), fl)
         trained, losses = [], []
         for w in transport.workers:
@@ -4111,8 +4241,8 @@ def phase_spmd(dev="cuda", full_cfg=None, smoke_cfg=None) -> dict:
     """Phase 10: LM training through the federated GenQSGD round —
     (a) loss and gradients, (b) ``full_cfg`` at full width on four wires,
     (c) elias and bucketed int8 at ``smoke_cfg``, (d) Scenario.run(spmd),
-    (e) one round at the MoE and hybrid smoke configs.  The launches of
-    (b) to (e), each read around its own runs."""
+    (e) one round at the MoE, hybrid, xLSTM, VLM and audio smoke configs.
+    The launches of (b) to (e), each read around its own runs."""
     from repro_torch.models.registry import get_config
     full_cfg = full_cfg or get_config(SPMD_ARCH)
     smoke_cfg = smoke_cfg or get_config(SPMD_ARCH, smoke=True)
@@ -4175,11 +4305,15 @@ def main() -> int:
     fam_serve = {}
     for arch, depth in SERVE_FAMILIES:
         fcfg = get_config(arch)
+        max_len, prompt, new = SERVE_SHAPES.get(
+            arch, (SERVE_MAX_LEN, SERVE_PROMPT, SERVE_NEW))
         fam_serve[arch] = timed(
             f"serve {arch}", phase_serve, "cuda", fcfg, SERVE_SLOTS,
-            SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+            max_len, SERVE_REQUESTS, prompt, new,
             dataclasses.replace(fcfg, n_layers=depth))
     spmd = timed("spmd", phase_spmd, "cuda")
+    audio = timed("spmd whisper", spmd_full_width, "cuda",
+                  get_config(SPMD_AUDIO_ARCH), ("f32", "int8"), 1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4194,7 +4328,7 @@ def main() -> int:
                "payload_buckets": pay_b["launches"],
                "serve": serve["launches"],
                **{f"serve {a}": v["launches"] for a, v in fam_serve.items()},
-               "spmd": spmd["launches"]}
+               "spmd": spmd["launches"], "spmd whisper": audio["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
             "flash_decode": "serve",
             "qsgd_dequant_apply_bucketed": "bucketed",
@@ -4203,8 +4337,9 @@ def main() -> int:
              **bkern["main"], **elias["main"]}
     worst = {**kern["worst"], **fused["worst"], **k6["worst"],
              **bkern["worst"], **elias["worst"]}
-    for name, err in spmd["worst"].items():    # the training path's shapes
-        worst[name] = max(worst[name], err)
+    for part in (spmd, audio):          # the training paths' shapes
+        for name, err in part["worst"].items():
+            worst[name] = max(worst[name], err)
     kernels = []
     for name, (ms, plain, lib, (bnd, by)) in timed.items():
         kernels.append({

@@ -9,20 +9,11 @@ PyTorch), with the QSGD norm, quantize and dequant-apply as hand-written
 CUDA kernels (:mod:`repro_torch.kernels.qsgd`).
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``; with no card they raise instead of falling back.  What
-the slice does not carry yet raises :class:`NotImplementedError` naming its
-item in ``ROADMAP.md``.
+``device="cpu"``; with no card they raise instead of falling back.
 """
 from __future__ import annotations
 
-__all__ = ["not_ported", "resolve_device", "same_device"]
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a feature of ``repro`` this package does not carry yet."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md, Queue 1, item {item})")
+__all__ = ["resolve_device", "same_device"]
 
 
 def resolve_device(device):

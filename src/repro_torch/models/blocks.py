@@ -10,8 +10,12 @@ is flash decode (K6, :mod:`repro_torch.kernels.flash_decode`).  Decode
 updates its cache in place (the JAX function returns a new one) and returns
 it.  Under M-RoPE (qwen2-vl) positions are ``positions3`` (3, B, S), the
 (t, h, w) streams; the causal mask and the cache's positions take stream 0,
-the temporal order, as the reference does.  LayerNorm (whisper) is not
-carried yet.
+the temporal order, as the reference does.  ``causal=False`` (whisper's
+encoder and cross-attention) attends over every key, less those
+``k_valid`` masks.  The projections go through :func:`matmul`, which
+promotes mixed operand types as ``jnp.matmul`` does (whisper's f32 frames
+and encoder states meet bf16 weights under the training runtime's bf16
+view); with equal types it is ``a @ b``.
 """
 from __future__ import annotations
 
@@ -22,13 +26,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels.flash_decode import flash_decode
 
 __all__ = ["Q_CHUNK", "dense_init", "rmsnorm", "rope_freqs", "apply_rope",
            "attn_init", "attn_apply", "attn_decode", "make_cache",
-           "mlp_init", "mlp_apply", "apply_mrope", "layernorm"]
+           "mlp_init", "mlp_apply", "apply_mrope", "layernorm", "matmul"]
 
 Q_CHUNK = 1024  # query chunk for attention score tiles
 
@@ -50,8 +54,25 @@ def rmsnorm(x, w, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def layernorm(*args, **kwargs):
-    raise not_ported("layernorm (whisper)", 10)
+def layernorm(x, w, b, eps: float = 1e-5):
+    """LayerNorm: f32 statistics (the population variance), the affine
+    transform in f32, then x's type.  No model calls it (whisper uses
+    rmsnorm, as in the JAX package, whose ``layernorm`` has no caller
+    either): kept as that package's counterpart, to go with it."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    return (((xf - mu) * torch.rsqrt(var + eps)) * w + b).to(x.dtype)
+
+
+def matmul(a, b):
+    """``a @ b`` with both operands cast to their promoted type where the
+    types differ, as ``jnp.matmul`` promotes them (``torch.matmul`` refuses
+    mixed types): an f32 operand is never rounded down."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +150,9 @@ def attn_init(generator, cfg: ArchConfig, dtype=torch.float32,
 def _qkv(p, x, cfg: ArchConfig, positions):
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
+    q = matmul(x, p["wq"]).reshape(B, S, H, dh)
+    k = matmul(x, p["wk"]).reshape(B, S, KV, dh)
+    v = matmul(x, p["wv"]).reshape(B, S, KV, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -144,24 +165,32 @@ def _qkv(p, x, cfg: ArchConfig, positions):
     return _rotate(q, cos, sin), _rotate(k, cos, sin), v
 
 
-def _sdpa_chunk(q, k, v, q_pos, k_pos, window: Optional[int]):
-    """Causal attention of q: (B,Q,KV,G,dh) over k/v: (B,S,KV,dh) ->
-    (B,Q,KV,G,dh).
-
-    Bias is built from position vectors (no S×S global mask)."""
+def _sdpa_chunk(q, k, v, q_pos, k_pos, window: Optional[int],
+                causal: bool = True, k_valid=None):
+    """Attention of q: (B,Q,KV,G,dh) over k/v: (B,S,KV,dh) ->
+    (B,Q,KV,G,dh): causal by the position vectors (no S×S global mask),
+    or over every key (the positions unused); ``k_valid`` (B, S) masks
+    keys out in both."""
     dh = q.shape[-1]
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
     scores = scores / math.sqrt(dh)
-    m = k_pos[:, None, :] <= q_pos[:, :, None]              # (B,Q,S)
-    if window is not None:
-        m &= k_pos[:, None, :] > q_pos[:, :, None] - window
-    scores = scores.masked_fill(~m[:, None, None, :, :], -1e30)
+    m = None
+    if causal:
+        m = k_pos[:, None, :] <= q_pos[:, :, None]          # (B,Q,S)
+        if window is not None:
+            m &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    if k_valid is not None:
+        m = k_valid[:, None, :] if m is None else m & k_valid[:, None, :]
+    if m is not None:
+        scores = scores.masked_fill(~m[:, None, None, :, :], -1e30)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
 
 
-def attn_apply(p, x, cfg: ArchConfig, positions, *, window=None):
-    """Full-sequence causal attention (prefill), query-chunked.
+def attn_apply(p, x, cfg: ArchConfig, positions, *, window=None,
+               causal: bool = True):
+    """Full-sequence attention (train / prefill), query-chunked: causal,
+    or over every position with ``causal=False``.
 
     Returns (y, (k, v)): prefill builds its caches from k and v."""
     B, S, D = x.shape
@@ -174,13 +203,13 @@ def attn_apply(p, x, cfg: ArchConfig, positions, *, window=None):
     if S % Q_CHUNK == 0 and n_chunks > 1:
         outs = [_sdpa_chunk(q[:, i * Q_CHUNK:(i + 1) * Q_CHUNK], k, v,
                             tok_pos[:, i * Q_CHUNK:(i + 1) * Q_CHUNK],
-                            tok_pos, window)
+                            tok_pos, window, causal)
                 for i in range(n_chunks)]
         out = torch.cat(outs, dim=1).reshape(B, S, H * dh)
     else:
-        out = _sdpa_chunk(q, k, v, tok_pos, tok_pos, window)
+        out = _sdpa_chunk(q, k, v, tok_pos, tok_pos, window, causal)
         out = out.reshape(B, S, H * dh)
-    return out @ p["wo"], (k, v)
+    return matmul(out, p["wo"]), (k, v)
 
 
 def attn_decode(p, x, cfg: ArchConfig, positions, cache, *, window=None):
@@ -211,7 +240,7 @@ def attn_decode(p, x, cfg: ArchConfig, positions, cache, *, window=None):
     out = flash_decode(q.reshape(B, KV, H // KV, dh), cache["k"],
                        cache["v"], valid)
     cache["idx"] += 1
-    return out.reshape(B, 1, H * dh) @ p["wo"], cache
+    return matmul(out.reshape(B, 1, H * dh), p["wo"]), cache
 
 
 def make_cache(cfg: ArchConfig, batch: int, length: int,
@@ -245,5 +274,5 @@ def mlp_init(generator, cfg: ArchConfig, dtype=torch.float32,
 
 
 def mlp_apply(p, x):
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
+    return matmul(h, p["w_down"])

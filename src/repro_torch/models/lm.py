@@ -233,11 +233,27 @@ def _logits(params, cfg: ArchConfig, h):
 
 def _ce_sum(h, head, labels):
     """Summed cross entropy of positions h (..., D) against labels: the
-    logits in h's dtype, then log-softmax in f32, as the reference."""
-    logits = (h @ head).to(torch.float32)
+    logits in the operands' promoted type, then log-softmax in f32, as the
+    reference."""
+    logits = B.matmul(h, head).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (logz - gold).sum()
+
+
+def _ce_total(h, head, labels):
+    """Summed cross entropy of h (B, S, D) against labels (B, S), the vocab
+    projection chunked over ``LOSS_CHUNK`` positions where that splits S
+    into two or more chunks (an f32 scalar)."""
+    S = h.shape[1]
+    n_chunks = max(1, S // LOSS_CHUNK)
+    if S % LOSS_CHUNK == 0 and n_chunks > 1:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n_chunks):
+            sl = slice(i * LOSS_CHUNK, (i + 1) * LOSS_CHUNK)
+            total = total + _ce_sum(h[:, sl], head, labels[:, sl])
+        return total
+    return _ce_sum(h, head, labels)
 
 
 def loss_train(params, cfg: ArchConfig, batch, aux_weight: float = 0.01):
@@ -247,18 +263,9 @@ def loss_train(params, cfg: ArchConfig, batch, aux_weight: float = 0.01):
     h = _embed(params, cfg, batch)
     pos = _positions(cfg, batch)
     h, aux = forward_hidden(params, cfg, h, pos)
-    labels = batch["labels"]
     Bt, S, _ = h.shape
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    n_chunks = max(1, S // LOSS_CHUNK)
-    if S % LOSS_CHUNK == 0 and n_chunks > 1:
-        total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(n_chunks):
-            sl = slice(i * LOSS_CHUNK, (i + 1) * LOSS_CHUNK)
-            total = total + _ce_sum(h[:, sl], head, labels[:, sl])
-    else:
-        total = _ce_sum(h, head, labels)
-    return total / (Bt * S) + aux_weight * aux
+    return _ce_total(h, head, batch["labels"]) / (Bt * S) + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ prefill as a batch-of-one (cache splice), then decode together, the decode
 attention through flash decode (K6) on the card.  Greedy sampling;
 completion on EOS or max_new_tokens.  The engine runs on the card unless
 the caller passes ``device="cpu"``; the params must lie on that device.
-It serves the dense, MoE, hybrid, xLSTM and VLM families: a mamba2
+It serves the dense, MoE, hybrid, xLSTM, VLM and audio families: a mamba2
 layer's slot holds its SSM state ``{"h", "conv"}``, an xLSTM layer's its
 f32 state, leaves spliced like a KV cache.  The
 prefilled conv tail is rounded to the cache's type on admission, as the
@@ -21,8 +21,14 @@ prompt shorter than ``ssm_conv - 1`` tokens raises :class:`ValueError` at
 admission.  A VLM request (qwen2-vl) is admitted as the reference admits
 it: zero patch embeddings over the first ``max(1, int(P *
 vision_patches_frac))`` positions and three equal M-RoPE streams
-``arange(P)``.  Serving an encoder-decoder model raises
-:class:`NotImplementedError` (ROADMAP.md, Queue 1, item 10).
+``arange(P)``.  An encoder-decoder request (whisper) is admitted with zero
+frames ``(1, max_source_positions, d_model)`` f32, as the reference's; its
+caches are ``{"self": KV caches (n_layers, slots, ...), "enc": encoder
+states (slots, frames, D)}``.  Such an engine needs ``max_len >=
+max_source_positions``: the encoder cache holds ``min(frames, max_len)``
+rows and prefill returns every frame, so a shorter one raises
+:class:`ValueError` at construction (the reference fails at its first
+admission).
 """
 from __future__ import annotations
 
@@ -57,6 +63,11 @@ class ServeEngine:
     def __init__(self, params, cfg: ArchConfig, slots: int = 4,
                  max_len: int = 256, cache_dtype=torch.bfloat16,
                  device="cuda"):
+        if cfg.encdec and max_len < cfg.max_source_positions:
+            raise ValueError(
+                f"an encoder-decoder engine needs max_len ({max_len}) >= "
+                f"max_source_positions ({cfg.max_source_positions}): its "
+                f"encoder cache holds min(frames, max_len) rows")
         self.params = params
         self.cfg = cfg
         self.api = model_api(cfg)
@@ -86,9 +97,15 @@ class ServeEngine:
     def _splice_cache(self, slot: int, new_caches):
         """Copy a freshly prefilled batch-of-one cache into slot ``slot``
         (every leaf, KV cache or SSM state, is (count, B, ...), the batch
-        on axis 1), cast to the leaf's type; an SSM conv tail rounded
-        through the cache's type first."""
-        for full, one in zip(self.caches, new_caches):
+        on axis 1; whisper's encoder states (B, frames, D) have it on axis
+        0), cast to the leaf's type; an SSM conv tail rounded through the
+        cache's type first."""
+        if self.cfg.encdec:
+            self.caches["enc"][slot:slot + 1].copy_(new_caches["enc"])
+            pairs = [(self.caches["self"], new_caches["self"])]
+        else:
+            pairs = zip(self.caches, new_caches)
+        for full, one in pairs:
             for key, leaf in full.items():
                 src = one[key]
                 if key == "conv":
@@ -124,6 +141,10 @@ class ServeEngine:
                                                 device=self.device)
             pos = torch.arange(P, device=self.device)[None]
             batch["positions3"] = torch.stack([pos, pos, pos])
+        if self.cfg.encdec:
+            batch["frames"] = torch.zeros(1, self.cfg.max_source_positions,
+                                          self.cfg.d_model,
+                                          device=self.device)
         logits, one_caches = self.api.prefill(self.params, self.cfg, batch,
                                               cache_len=self.max_len,
                                               cache_dtype=self.cache_dtype)

@@ -4,8 +4,10 @@
 JAX package's on the CPU, at the smoke configs of olmoe-1b-7b, phi3.5-moe,
 zamba2-2.7b, xlstm-1.3b, qwen2-vl-7b, llama3-405b and mistral-large-123b;
 the ports of ``tests/integration/test_arch_smoke.py`` for every arch the
-port carries; and ``chip_smoke.py``'s parameter and K6-launch counts
-against the parameter tree and a counted decode step.
+port carries (whisper-tiny's encoder-decoder among them, its batch with
+frames; whisper's parity tests are ``tests/test_torch_whisper.py``); and
+``chip_smoke.py``'s parameter and K6-launch counts against the parameter
+tree and a counted decode step.
 
 A VLM batch (qwen2-vl) carries numpy-seeded patch embeddings over the
 first quarter of the positions and three unequal M-RoPE streams (t, t // 4,
@@ -32,7 +34,6 @@ Weights are the JAX package's ``init_params`` carried across by
   (every slot's token, idle ones too, takes expert capacity in token
   order), so the dense isolation test does not carry over.
 """
-import dataclasses
 import os
 import sys
 
@@ -44,11 +45,13 @@ import torch
 
 from repro.models import lm as RLM
 from repro.models.registry import get_config as r_get_config
+from repro.models.registry import model_api as r_model_api
 from repro.serve import Request as RRequest
 from repro.serve import ServeEngine as RServeEngine
 from repro_torch.fed import tree_leaves, tree_unflatten
 from repro_torch.models import blocks as PB
 from repro_torch.models import lm as PLM
+from repro_torch.models import whisper as PW
 from repro_torch.models.registry import ARCH_IDS, get_config, model_api
 from repro_torch.serve import Request, ServeEngine
 
@@ -347,6 +350,9 @@ def _batch(cfg, B=2, S=64):
                                             generator=gen)
         pos = torch.arange(S).expand(B, S)
         batch["positions3"] = torch.stack([pos, pos, pos])
+    if cfg.encdec:
+        batch["frames"] = torch.randn(B, cfg.max_source_positions,
+                                      cfg.d_model, generator=gen)
     return batch
 
 
@@ -402,7 +408,7 @@ def test_param_counts_sane():
               "zamba2-2.7b": (1.8e9, 4e9),
               "mistral-large-123b": (1.0e11, 1.4e11),
               "llama3-405b": (3.6e11, 4.4e11), "xlstm-1.3b": (0.8e9, 2.4e9),
-              "qwen2-vl-7b": (6e9, 9.5e9)}
+              "qwen2-vl-7b": (6e9, 9.5e9), "whisper-tiny": (2e7, 8e7)}
     assert sorted(approx) == sorted(ARCH_IDS)
     for arch, (lo, hi) in approx.items():
         n = get_config(arch).param_count()
@@ -414,20 +420,6 @@ def test_param_counts_sane():
         n = sum(t.numel() for t in tree_leaves(params))
         assert n == cfg.param_count() + cfg.d_model \
             + 2 * cfg.n_layers * cfg.d_head * cfg.qk_norm
-
-
-@pytest.mark.parametrize("call", [
-    lambda: get_config("whisper-tiny"),
-    lambda: PB.layernorm(torch.zeros(2, 4), torch.ones(4), torch.zeros(4)),
-    lambda: model_api(dataclasses.replace(get_config("qwen3-1.7b",
-                                                     smoke=True),
-                                          encdec=True)),
-], ids=["whisper-tiny", "layernorm", "encdec"])
-def test_whisper_still_raises(call):
-    """Whisper is the one arch of the JAX package not carried: its config,
-    its LayerNorm and the encoder-decoder model raise naming item 10."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call()
 
 
 # ---------------------------------------------------------------------------
@@ -444,26 +436,34 @@ def _chip_smoke():
 def test_param_tree_count_matches_the_tree(arch):
     """``chip_smoke.param_tree_count`` counts the parameters of the port's
     tree at each smoke config and the reference's abstract tree at each
-    full config (xlstm-1.3b 3,468,498,944, qwen2-vl-7b 7,070,490,112)."""
+    full config (xlstm-1.3b 3,468,498,944, qwen2-vl-7b 7,070,490,112,
+    whisper-tiny 41,158,272 and whisper-smoke 853,504)."""
     count = _chip_smoke().param_tree_count
     cfg = get_config(arch, smoke=True)
-    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
+    params = model_api(cfg).init_params(cfg,
+                                        torch.Generator().manual_seed(0))
     assert count(cfg) == sum(t.numel() for t in tree_leaves(params))
-    full = RLM.abstract_params(r_get_config(arch))
+    rcfg = r_get_config(arch)
+    full = r_model_api(rcfg).abstract_params(rcfg)
     assert count(get_config(arch)) == sum(
         int(np.prod(a.shape)) for a in jax.tree.leaves(full))
-    want = {"xlstm-1.3b": 3_468_498_944, "qwen2-vl-7b": 7_070_490_112}
+    want = {"xlstm-1.3b": 3_468_498_944, "qwen2-vl-7b": 7_070_490_112,
+            "whisper-tiny": 41_158_272}
     if arch in want:
         assert count(get_config(arch)) == want[arch]
+    if arch == "whisper-tiny":
+        assert count(cfg) == 853_504
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_k6_layers_counts_decode_launches(arch, monkeypatch):
     """``chip_smoke.k6_layers`` is the number of flash-decode (K6) calls a
     decode step makes at each smoke config: one an attention layer, none
-    for mamba2, mlstm and slstm layers."""
+    for mamba2, mlstm and slstm layers, two a decoder layer of whisper
+    (its self- and cross-attention)."""
     cfg = get_config(arch, smoke=True)
-    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
+    api = model_api(cfg)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
     calls = []
 
     def counting(*args, **kwargs):
@@ -471,10 +471,11 @@ def test_k6_layers_counts_decode_launches(arch, monkeypatch):
         return real(*args, **kwargs)
     real = PB.flash_decode
     monkeypatch.setattr(PB, "flash_decode", counting)
+    monkeypatch.setattr(PW, "flash_decode", counting)
     with torch.no_grad():
-        _, caches = PLM.prefill(params, cfg, _batch(cfg, 1, 8),
+        _, caches = api.prefill(params, cfg, _batch(cfg, 1, 8),
                                 cache_len=12)
-        PLM.decode_step(params, cfg, torch.zeros(1, 1, dtype=torch.int64),
+        api.decode_step(params, cfg, torch.zeros(1, 1, dtype=torch.int64),
                         caches, torch.full((1, 1), 8))
     assert len(calls) == _chip_smoke().k6_layers(cfg)
     assert (len(calls) == 0) == (arch == "xlstm-1.3b")

@@ -1,11 +1,13 @@
-"""The federated GenQSGD round of repro_torch at the MoE, hybrid, xLSTM and
-VLM smoke configs (olmoe-1b-7b, zamba2-2.7b, xlstm-1.3b and qwen2-vl-7b)
-against the JAX package's, on the CPU, with the real loss: the router's
-aux term (``FedConfig.aux_weight``) for olmoe, the mamba2 blocks and
-zamba2's weight-shared attention for zamba2, the mLSTM and sLSTM blocks
-for xlstm, and for qwen2-vl patch embeddings and unequal M-RoPE streams
-at ``microbatch`` 2 (positions3 (3, B, S) split on its batch axis, as the
-reference splits it).
+"""The federated GenQSGD round of repro_torch at the MoE, hybrid, xLSTM,
+VLM and whisper smoke configs (olmoe-1b-7b, zamba2-2.7b, xlstm-1.3b,
+qwen2-vl-7b and whisper-tiny) against the JAX package's, on the CPU, with
+the real loss: the router's aux term (``FedConfig.aux_weight``) for olmoe,
+the mamba2 blocks and zamba2's weight-shared attention for zamba2, the
+mLSTM and sLSTM blocks for xlstm, for qwen2-vl patch embeddings and
+unequal M-RoPE streams at ``microbatch`` 2 (positions3 (3, B, S) split on
+its batch axis, as the reference splits it), and for whisper the encoder
+over f32 frames, whose products with the bf16 view's weights promote to
+f32, at ``microbatch`` 1 and 2 (the frames split on axis 0).
 
 The JAX package's ``make_round_fn`` runs the cases of
 ``tests/torch_fed_cases.py``'s ``FAMILY_CASES`` on a (2, 1, 1) CPU mesh in
@@ -25,7 +27,13 @@ differ by bf16 rounding (``tests/test_torch_train.py``).  So, as
   trees have leaves of 2^18 coordinates whose aggregate takes a few
   distinct values: the two packages' server norms there differ by up to
   1.3e-5 (measured, f32 sums in another order), which scales the whole
-  leaf's update.  A real loss
+  leaf's update.  whisper's stub round allows level flips as
+  ``tests/test_torch_fed.py`` allows them in the dense stub rounds, at 1
+  in 10^4 coordinates: a coordinate of the update off the reference's by
+  more than 1e-4 relative is a flip, and the update within 1e-4 normwise
+  elsewhere (one flip, of 853,504 coordinates, measured, in the encoder's
+  ``wv``: there one level of the two packages' norms, which differ by
+  7.2e-6 in their f32 sums, took another stochastic rounding).  A real loss
   through a quantized wire is not compared: its bf16 rounding flips
   stochastic levels, each worth ‖Δ‖/s (0.2 of the update normwise, measured);
 - the leaves in ``jax.tree.leaves``' order, shapes equal.
@@ -42,6 +50,8 @@ from repro_torch.fed import tree_leaves, tree_unflatten
 from tests import torch_fed_cases as C
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: stub rounds that allow level flips at <= 1 in 10^4 coordinates
+FLIP_RULE = ("whisper_int8",)
 
 
 @pytest.fixture(scope="module")
@@ -57,10 +67,9 @@ def ref(tmp_path_factory):
 
 
 def _x_hat(ref, tree):
-    from repro_torch.models import lm as PLM
-    from repro_torch.models.registry import get_config
-    like = PLM.init_params(get_config(C.ARCHS[tree], smoke=True),
-                           torch.Generator().manual_seed(0))
+    from repro_torch.models.registry import get_config, model_api
+    cfg = get_config(C.ARCHS[tree], smoke=True)
+    like = model_api(cfg).init_params(cfg, torch.Generator().manual_seed(0))
     n = len(tree_leaves(like))
     assert f"{tree}/x/{n - 1}" in ref and f"{tree}/x/{n}" not in ref
     leaves = [torch.from_numpy(ref[f"{tree}/x/{i}"]) for i in range(n)]
@@ -92,7 +101,13 @@ def test_family_round_matches_reference(ref, port, name):
     assert np.linalg.norm(d_ref) > 0
     if api == "stub":
         np.testing.assert_array_equal(np.sign(d_got), np.sign(d_ref))
-        assert np.linalg.norm(d_got - d_ref) <= 1e-4 * np.linalg.norm(d_ref)
+        keep = np.ones(got.shape, bool)
+        if name in FLIP_RULE:
+            keep = np.isclose(d_got, d_ref, rtol=1e-4, atol=0)
+            assert int((~keep).sum()) <= got.size // 10**4, \
+                int((~keep).sum())
+        assert np.linalg.norm((d_got - d_ref)[keep]) <= \
+            1e-4 * np.linalg.norm(d_ref)
         np.testing.assert_allclose(m["delta_norm"],
                                    ref[f"{name}/m/delta_norm"], rtol=1e-4)
         np.testing.assert_allclose(m["loss"], ref[f"{name}/m/loss"],

@@ -52,7 +52,8 @@ _SLICE_MODULES = (
     "repro_torch.configs.phi35_moe", "repro_torch.configs.zamba2_2_7b",
     "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
     "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.llama3_405b",
-    "repro_torch.configs.mistral_large_123b")
+    "repro_torch.configs.mistral_large_123b", "repro_torch.models.whisper",
+    "repro_torch.configs.whisper_tiny")
 
 
 def test_port_imports_without_jax_or_repro():

@@ -15,8 +15,6 @@ Weights are the JAX package's ``lm.init_params`` carried across by
   to bf16 (``blocks.py:141``); flash decode keeps both in f32, as the TPU
   kernel does.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +28,7 @@ from repro.serve import Request as RRequest
 from repro.serve import ServeEngine as RServeEngine
 from repro_torch.models import blocks as PB
 from repro_torch.models import lm as PLM
-from repro_torch.models.registry import get_config, model_api
+from repro_torch.models.registry import get_config
 from repro_torch.serve import Request, ServeEngine
 
 #: (arch, prompt length, cache length): gemma3-smoke's prompt is longer
@@ -222,55 +220,8 @@ def test_cross_slot_isolation():
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not carry raises, naming its ROADMAP item
+# the registry and the entry points' devices
 # ---------------------------------------------------------------------------
-def _layernorm():
-    """The VLM is served now (tests/test_torch_arch.py); whisper's
-    LayerNorm still raises naming item 10."""
-    PB.layernorm(torch.zeros(2, 4), torch.ones(4), torch.zeros(4))
-
-
-def _encdec_engine():
-    cfg, params = _setup()
-    _engine(params, dataclasses.replace(cfg, encdec=True), 1)
-
-
-def _encdec_api():
-    """Every block type of the decoder-only stack is carried (xLSTM since
-    tests/test_torch_xlstm.py); the encoder-decoder model's api still
-    raises naming item 10."""
-    cfg, _ = _setup()
-    model_api(dataclasses.replace(cfg, encdec=True))
-
-
-def _encdec_loss_train():
-    """loss_train carries every decoder-only stack (tests/test_torch_train.py,
-    tests/test_torch_arch.py); the encoder-decoder model's still raises
-    naming item 10."""
-    cfg = get_config("olmoe-1b-7b", smoke=True)
-    params = PLM.init_params(cfg, torch.Generator().manual_seed(0))
-    tok = torch.zeros(1, 4, dtype=torch.int32)
-    batch = {"tokens": tok, "labels": tok}
-    assert torch.isfinite(model_api(cfg).loss_train(params, cfg, batch))
-    model_api(dataclasses.replace(cfg, encdec=True)).loss_train(
-        params, cfg, batch)
-
-
-@pytest.mark.parametrize("call", [
-    lambda: get_config("whisper-tiny"),
-    lambda: get_config("whisper-tiny", smoke=True),
-    _layernorm,
-    _encdec_engine,
-    _encdec_api,
-    _encdec_loss_train,
-], ids=["arch", "arch-smoke", "vlm-submit", "encdec", "moe-block",
-        "loss_train"])  # the ids are the cases' first names: each case now
-                        # refuses a part of whisper, the one arch not carried
-def test_not_ported_raises(call):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call()
-
-
 def test_unknown_arch_raises_keyerror():
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -16,6 +16,7 @@ params, and a round's difference comes from the aggregation alone.
         one gloo rank of two running every DIST_CASES case through
         ``DistTransport`` (imports no jax).
 """
+import contextlib
 import os
 import sys
 
@@ -53,11 +54,13 @@ CASES = {
     "elias": (dict(Kn=(1, 2), s0=7, sn=(5, 7), wire="elias"), "tiny",
               "stub", None),
 }
-#: the rounds at the MoE, hybrid, xLSTM and VLM smoke configs: the real
-#: loss (the router's aux term included; the VLM's at ``microbatch`` 2, so
-#: positions3 (3, B, S) is split on its batch axis) with exact workers and
-#: server, and the stub loss on the same trees through the int8 wire (the
-#: aggregation alone); their reference runs in a subprocess of its own
+#: the rounds at the MoE, hybrid, xLSTM, VLM and whisper smoke configs:
+#: the real loss (the router's aux term included; the VLM's at
+#: ``microbatch`` 2, so positions3 (3, B, S) is split on its batch axis;
+#: whisper's with f32 frames, also at ``microbatch`` 2, the frames (B, F,
+#: D) split on axis 0) with exact workers and server, and the stub loss on
+#: the same trees through the int8 wire (the aggregation alone); their
+#: reference runs in a subprocess of its own
 FAMILY_CASES = {
     "olmoe": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "olmoe",
               "real", None),
@@ -71,11 +74,16 @@ FAMILY_CASES = {
     "qwen2vl_micro": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32",
                            microbatch=2), "qwen2vl", "real", None),
     "qwen2vl_int8": (dict(_Q, wire="int8"), "qwen2vl", "stub", None),
+    "whisper": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32"), "whisper",
+                "real", None),
+    "whisper_int8": (dict(_Q, wire="int8"), "whisper", "stub", None),
+    "whisper_micro": (dict(Kn=(1, 2), s0=None, sn=None, wire="f32",
+                           microbatch=2), "whisper", "real", None),
 }
 #: tree name -> the arch whose smoke config it is
 ARCHS = {"stub": "qwen3-1.7b", "qwen": "qwen3-1.7b", "olmoe": "olmoe-1b-7b",
          "zamba2": "zamba2-2.7b", "xlstm": "xlstm-1.3b",
-         "qwen2vl": "qwen2-vl-7b"}
+         "qwen2vl": "qwen2-vl-7b", "whisper": "whisper-tiny"}
 #: cases run in the port only, each held bitwise against a case of another
 #: wire at the same quantizers (the reference's rounds are keyed by "f32")
 PORT_ONLY = {
@@ -112,7 +120,8 @@ def stub_tree():
 def batch_for(fed: dict, cfg) -> dict:
     """(fl, K_max, B, S) tokens and next-token labels, NumPy-seeded; for a
     VLM also patch embeddings (fl, K_max, B, S // 4, D) and M-RoPE streams
-    (fl, K_max, 3, B, S) = (t, t // 4, t % 4), t offset per row."""
+    (fl, K_max, 3, B, S) = (t, t // 4, t % 4), t offset per row; for an
+    encoder-decoder f32 frames (fl, K_max, B, max_source_positions, D)."""
     rng = np.random.default_rng(3)
     lead = (FL, max(fed["Kn"]))
     t = rng.integers(0, cfg.vocab, lead + (4, 33)).astype(np.int32)
@@ -125,6 +134,10 @@ def batch_for(fed: dict, cfg) -> dict:
         pos = np.arange(S) + rng.integers(0, 50, lead + (4, 1))
         batch["positions3"] = np.stack([pos, pos // 4, pos % 4],
                                        axis=2).astype(np.int32)
+    if cfg.encdec:
+        batch["frames"] = rng.standard_normal(
+            lead + (4, cfg.max_source_positions, cfg.d_model)
+        ).astype(np.float32)
     return batch
 
 
@@ -158,13 +171,16 @@ class StubApi:
 def reference(out: str, families: bool = False) -> None:
     """Every CASES (or FAMILY_CASES) round through the JAX package's
     ``make_round_fn`` on a (fl=2, fsdp=1, tp=1) CPU mesh, saved with the
-    initial params and the round keys' words."""
+    initial params and the round keys' words.  Whisper's real loss traces
+    its layers unrolled: under the runtime's bf16 view its layer scan
+    refuses f32 frames (the carry turns f32 after the cross-attention)."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     import jax
     import jax.numpy as jnp
     from repro.compat import make_mesh
     from repro.configs.base import ArchConfig
     from repro.fed.runtime import FedConfig, make_round_fn
+    from repro.models import unroll
     from repro.models.registry import get_config, model_api
 
     mesh = make_mesh(np.array(jax.devices()).reshape(FL, 1, 1),
@@ -188,7 +204,9 @@ def reference(out: str, families: bool = False) -> None:
         args = (params, batch, key, jnp.float32(GAMMA))
         if u is not None:
             args += (jnp.asarray(u, jnp.float32),)
-        x_new, m = rnd(*args)
+        with (unroll.unrolled() if cfg.encdec and api == "real"
+              else contextlib.nullcontext()):
+            x_new, m = rnd(*args)
         res[f"{name}/x_new"] = np.concatenate(
             [np.asarray(l).reshape(-1) for l in jax.tree.leaves(x_new)])
         for k, v in m.items():
