@@ -249,7 +249,24 @@ Phases, each of which fails the script on error:
      from the seed (min(F, S) rows, as ``repro``'s launcher declares
      them), one round through the f32 and the int8 wire: x̂' bitwise
      across them, K1/K2 104 and K3 52 launches, ms a round, busy share,
-     peak memory.
+     peak memory;
+ 12. the command lines (``phase_launch``): (a) the training launcher,
+     ``repro_torch.launch.train.main`` in-process with LAUNCH_ARGV
+     (qwen3-1.7b as published, 1,720,574,976 parameters in 13 leaves, fl
+     = 2, Kn = (1, 1), B 2 x S 1,024 of the Markov tokens, the int8 wire
+     at s = 64, 2 rounds) and ``--device cuda``, the counters read around
+     it: K1/K2 2 and K3 1 launches a leaf a round, exactly (as 10 (b)
+     reckons the int8 wire), no plain version, every loss finite and
+     ``[train] done`` printed; the wall per round, peak device memory and
+     the f32 parameter bytes ``abstract_params`` reckons; (b) the four
+     ``examples/torch`` twins in-process (``runpy``, ``sys.argv`` set) at
+     their defaults on the card, each final line checked and the
+     counters read around each: serve_decode launches K6 once per
+     attention layer per decode step and nothing else, quickstart K1-K3
+     (400 rounds), train_lm_federated K1/K2 2 and K3 1 a leaf a round
+     (20 rounds), optimize_parameters solves through the fused engine on
+     the card (the step-program cache consulted) and launches no kernel;
+     no plain version anywhere.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -398,6 +415,14 @@ SPMD_AUDIO_ARCH = "whisper-tiny"
 SPMD_MICROBATCH = {"qwen2-vl-7b": 2}
 SPMD_ROUNDS = 2
 SPMD_GAMMA = 0.01
+#: phase 12: the training launcher at qwen3-1.7b's full width, in-process
+#: as ``python -m repro_torch.launch.train`` with these arguments and
+#: ``--device``, then the example twins at their defaults
+LAUNCH_ARGV = ("--arch", "qwen3-1.7b", "--rounds", "2", "--fl", "2",
+               "--k-local", "1", "--batch", "2", "--seq", "1024",
+               "--wire", "int8")
+EXAMPLES = ("serve_decode", "quickstart", "train_lm_federated",
+            "optimize_parameters")
 #: the MoE, hybrid, VLM, xLSTM and audio serving paths (phase 9 again),
 #: each with the depth of its card-against-CPU check (xlstm's 8: 7 mLSTM,
 #: 1 sLSTM; whisper-tiny's 4, its whole decoder over its 4-layer encoder)
@@ -4257,6 +4282,179 @@ def phase_spmd(dev="cuda", full_cfg=None, smoke_cfg=None) -> dict:
     return {**full, "launches": launches}
 
 
+def launch_train(dev="cuda", argv=LAUNCH_ARGV) -> dict:
+    """12 (a): ``repro_torch.launch.train.main(argv + --device dev)``
+    in-process, the launch counters and the plain versions' counters read
+    around it: K1/K2 2 and K3 1 launches a leaf a round (the int8 wire, the
+    fl workers sharing s: one K1/K2 launch over their rows, one for the
+    server), no plain version on the card, every loss finite and ``[train]
+    done`` printed; wall per round, peak device memory, and the f32
+    parameter bytes that ``abstract_params`` reckons beside them."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.fed import tree_leaves
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.specs import tree_bytes
+    from repro_torch.models.registry import get_config, model_api
+
+    argv = list(argv) + ["--device", dev]
+    args = LT.parser().parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    abstract = tree_leaves(model_api(cfg).abstract_params(
+        cfg, dtype=torch.float32))
+    L, n = len(abstract), sum(t.numel() for t in abstract)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    plain, undo = count_plain_calls()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = LT.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[launch] {line.strip()}")
+    got_n = sum(t.numel() for t in tree_leaves(state.params))
+    losses = [h["loss"] for h in state.history]
+    if "[train] done" not in out or got_n != n or \
+            len(losses) != args.rounds or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[launch] the launcher's run: {got_n} "
+                             f"parameters (abstract {n}), losses {losses}")
+    want = expected_launches(qsgd_sumsq=2 * L * args.rounds,
+                             qsgd_quantize=2 * L * args.rounds,
+                             qsgd_dequant_apply=L * args.rounds)
+    if cuda and (launches != want or any(plain.values())):
+        raise AssertionError(f"[launch] launches {launches} != expected "
+                             f"{want}, or a plain version ran: {plain}")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    total = torch.cuda.get_device_properties(0).total_memory if cuda else 0
+    dts = [h["dt"] for h in state.history]
+    log(f"[launch] {cfg.name} at full width: {n} parameters in {L} leaves, "
+        f"{tree_bytes(abstract)} f32 parameter bytes reckoned by "
+        f"abstract_params; fl = {args.fl}, B {args.batch} x S {args.seq}, "
+        f"wire {args.wire}; wall {wall:.1f} s for {args.rounds} rounds "
+        f"(init and data included), a round " + ", ".join(
+            f"{d * 1e3:.1f} ms" for d in dts)
+        + f"; peak device memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated) of {total} bytes "
+          f"(get_device_properties(0).total_memory); launches K1 "
+          f"{launches['qsgd_sumsq']}, K2 {launches['qsgd_quantize']}, K3 "
+          f"{launches['qsgd_dequant_apply']} (exact), no plain version")
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "wall": wall, "round_s": dts,
+            "peak": peak}
+
+
+def _flag(argv, flag: str, default: int) -> int:
+    """The int value of ``flag`` in ``argv``, else its default."""
+    return int(argv[argv.index(flag) + 1]) if flag in argv else default
+
+
+def launch_examples(dev="cuda", extra=None) -> dict:
+    """12 (b): each ``examples/torch/*.py`` in-process (``runpy`` with
+    ``sys.argv`` set) at its defaults and ``--device dev`` (``extra``:
+    more arguments by example, for a rehearsal), its output's final line
+    checked and the launch counters read around it: serve_decode launches
+    K6 once per attention layer per decode step and nothing else;
+    quickstart and train_lm_federated launch K1-K3 (the latter exactly,
+    K1/K2 2 and K3 1 a leaf a round) and no K6; optimize_parameters solves
+    through the fused engine on ``dev`` and launches no kernel.  No plain
+    version runs on the card."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+    from repro_torch.models.registry import get_config
+    from repro_torch.opt import gia_fused
+
+    extra = extra or {}
+    cuda = torch.device(dev).type == "cuda"
+    total = None
+    for name in EXAMPLES:
+        path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+        argv = ["--device", dev] + list(extra.get(name, ()))
+        info0 = gia_fused.compile_cache_info()
+        reset_launches()
+        plain, undo = count_plain_calls()
+        buf, saved = io.StringIO(), sys.argv
+        t0 = time.perf_counter()
+        sys.argv = [path] + argv
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod = runpy.run_path(path, run_name="__main__")
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            sys.argv = saved
+            undo()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        lines = buf.getvalue().strip().splitlines()
+        last = lines[-1] if lines else ""
+        k13 = [launches[k] for k in ("qsgd_sumsq", "qsgd_quantize",
+                                     "qsgd_dequant_apply")]
+        if name == "serve_decode":
+            cfg = get_config("qwen3-1.7b", smoke=True)
+            steps = _flag(argv, "--steps", 16)  # the first token is greedy
+            want = expected_launches(flash_decode=(steps - 1)
+                                     * k6_layers(cfg))
+            ok = last.startswith(f"decoded {steps} tokens") and (
+                not cuda or launches == want)
+        elif name == "quickstart":
+            ok = last.startswith("== done: final accuracy") and (
+                not cuda or (min(k13) > 0 and launches["flash_decode"] == 0))
+        elif name == "train_lm_federated":
+            from repro_torch.fed import tree_leaves
+            from repro_torch.models import lm
+            L = len(tree_leaves(lm.abstract_params(mod["small_cfg"](False))))
+            rounds = _flag(argv, "--rounds", 20)
+            want = expected_launches(qsgd_sumsq=2 * L * rounds,
+                                     qsgd_quantize=2 * L * rounds,
+                                     qsgd_dequant_apply=L * rounds)
+            ok = last.startswith("loss: ") and (not cuda or launches == want)
+        else:
+            info = gia_fused.compile_cache_info()
+            solved = (info.hits + info.misses) - (info0.hits + info0.misses)
+            fused = "--backend" not in argv   # its default: the fused GIA
+            ok = (last.startswith("FedAvg") and bool(lines) and (
+                not fused or ("torch-fused backend" in lines[0]
+                              and solved > 0))
+                and launches == expected_launches())
+        log(f"[examples] {name} on {dev}: {dt:.1f} s, final line "
+            f"{last.strip()!r}; launches " + ", ".join(
+                f"{k} {v}" for k, v in launches.items() if v)
+            + ("" if any(launches.values()) else "none"))
+        if not ok or (cuda and any(plain.values())):
+            raise AssertionError(f"[examples] {name}: final line {last!r}, "
+                                 f"launches {launches}, plain {plain}")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    return {"launches": total}
+
+
+def phase_launch(dev="cuda", argv=LAUNCH_ARGV, extra=None) -> dict:
+    """Phase 12: the training launcher at full width (``launch_train``),
+    then the four example twins (``launch_examples``)."""
+    train = launch_train(dev, argv)
+    ex = launch_examples(dev, extra)
+    return {"train": train, "examples": ex}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -4314,13 +4512,15 @@ def main() -> int:
     spmd = timed("spmd", phase_spmd, "cuda")
     audio = timed("spmd whisper", spmd_full_width, "cuda",
                   get_config(SPMD_AUDIO_ARCH), ("f32", "int8"), 1)
+    launch = timed("launch", phase_launch, "cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     # launches: each kernel's count on the path that carries it (K1-K3 the
     # quickstart run, K3b the bucketed quickstart, K4/K5 the payload path,
     # elias_decode the bucketed and elias payloads, K6 the serving run),
-    # every path beside it (spmd: the federated LM round's three runs)
+    # every path beside it (spmd: the federated LM round's three runs;
+    # launch train: the launcher's run; examples: the four twins' sum)
     by_path = {"genqsgd": path["launches"], "bucketed": bucketed["launches"],
                "sweep": sweep["launches"], "planserver": plans["launches"],
                "sampled": samp["launches"],
@@ -4328,7 +4528,9 @@ def main() -> int:
                "payload_buckets": pay_b["launches"],
                "serve": serve["launches"],
                **{f"serve {a}": v["launches"] for a, v in fam_serve.items()},
-               "spmd": spmd["launches"], "spmd whisper": audio["launches"]}
+               "spmd": spmd["launches"], "spmd whisper": audio["launches"],
+               "launch train": launch["train"]["launches"],
+               "examples": launch["examples"]["launches"]}
     home = {"fused_encode": "payload", "fused_rotate_encode": "payload",
             "flash_decode": "serve",
             "qsgd_dequant_apply_bucketed": "bucketed",

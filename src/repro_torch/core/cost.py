@@ -213,6 +213,38 @@ class EdgeSystem:
             Fn=Fn, Cn=np.full(N, 1e8), pn=np.full(N, 1.5),
             rn=np.full(N, 1e6), sn=sn, alphan=np.full(N, 2e-28), dim=dim)
 
+    @staticmethod
+    def h100_fleet(dim: int, n_groups: int, chips_per_group: int,
+                   s0: Optional[int] = 2**7, sn: Optional[int] = 2**7,
+                   link_bw: float = 400e9, peak_flops: float = 989e12,
+                   watts_per_chip: float = 700.0,
+                   flops_per_sample_step: float = 1.0) -> "EdgeSystem":
+        """Re-parameterize the cost models with H100 fleet constants
+        (``repro``'s ``tpu_v5e_fleet`` arithmetic): dense bf16 989 TFLOP/s
+        a card (NVIDIA's H100 SXM5 data sheet) at an assumed 40 % MFU,
+        700 W a card (the card's power limit), one 400 Gb/s NDR InfiniBand
+        adapter a card between groups (``link_bw`` in bits/s).
+
+        Each FL "worker" is a replica group of ``chips_per_group`` cards;
+        the "server" is the reduction over the slow inter-group links.
+        ``C_n`` is expressed in FLOPs (so ``F_n`` is FLOP/s) — the ratio
+        C/F is all that matters to the model.
+        """
+        N = n_groups
+        group_flops = peak_flops * chips_per_group * 0.4  # 40% MFU assumption
+        watts = watts_per_chip * chips_per_group
+        return EdgeSystem(
+            F0=group_flops, C0=float(2 * dim), p0=watts,
+            r0=link_bw, s0=s0,
+            alpha0=watts / group_flops**3,
+            Fn=np.full(N, group_flops),
+            Cn=np.full(N, flops_per_sample_step),
+            pn=np.full(N, watts),
+            rn=np.full(N, link_bw),
+            sn=[sn] * N,
+            alphan=np.full(N, watts / group_flops**3),
+            dim=dim, q_dim=4096)
+
 
 def time_cost(sys: EdgeSystem, K0, Kn, B, worst_case: bool = False):
     """T(K, B) — eq. (17).  Broadcasts over an ndarray ``K0``.

@@ -11,8 +11,10 @@
   is the JAX package's, equal for a seed; each batch's NumPy walk is
   seeded from a ``torch.Generator`` draw where the JAX package draws from
   ``jax.random``.  The matrix is vocab^2 float64 (185 GB at qwen3's
-  151,936 tokens), so full-width runs draw uniform tokens on the device
-  instead (``uniform_lm_batch``).
+  151,936 tokens), so the walk keeps only each token's successors and
+  their extra mass (``_markov_successors``, vocab x 8) and builds the
+  current tokens' rows as it steps (``_markov_rows``), the matrix's rows
+  bit for bit.  ``uniform_lm_batch`` draws uniform tokens on the device.
 """
 from __future__ import annotations
 
@@ -24,28 +26,48 @@ import torch
 __all__ = ["mnist_like", "token_batches", "lm_batch", "uniform_lm_batch"]
 
 
-def _markov_matrix(vocab: int, seed: int, branching: int = 8) -> np.ndarray:
+def _markov_successors(vocab: int, seed: int, branching: int = 8):
+    """Each token's ``branching`` successors and the mass they add to its
+    row, drawn as the JAX package draws its matrix -> (nxt (vocab, b)
+    int64, extra (vocab, b) float64)."""
     rng = np.random.default_rng(seed)
-    T = np.full((vocab, vocab), 1e-3)
+    nxt = np.empty((vocab, branching), np.int64)
+    extra = np.empty((vocab, branching))
     for v in range(vocab):
-        nxt = rng.choice(vocab, size=branching, replace=False)
-        T[v, nxt] += rng.dirichlet(np.ones(branching)) * branching
-    return T / T.sum(axis=1, keepdims=True)
+        nxt[v] = rng.choice(vocab, size=branching, replace=False)
+        extra[v] = rng.dirichlet(np.ones(branching)) * branching
+    return nxt, extra
+
+
+def _markov_rows(succ, vocab: int, tokens: np.ndarray) -> np.ndarray:
+    """The transition matrix's rows of ``tokens`` (n,) -> (n, vocab)."""
+    nxt, extra = succ
+    rows = np.full((len(tokens), vocab), 1e-3)
+    for r, v in enumerate(tokens):
+        rows[r, nxt[v]] += extra[v]
+    rows /= rows.sum(axis=1, keepdims=True)
+    return rows
+
+
+def _markov_matrix(vocab: int, seed: int, branching: int = 8) -> np.ndarray:
+    return _markov_rows(_markov_successors(vocab, seed, branching), vocab,
+                        np.arange(vocab))
 
 
 def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int,
-             trans: np.ndarray) -> dict:
-    """One (tokens, labels) batch from the Markov backbone: int32 (batch,
-    seq) tensors on the host, the walk seeded by one draw of
-    ``generator``."""
+             succ) -> dict:
+    """One (tokens, labels) batch from the Markov backbone (``succ`` from
+    :func:`_markov_successors`): int32 (batch, seq) tensors on the host,
+    the walk seeded by one draw of ``generator``."""
     seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
     rng = np.random.default_rng(seed)
     toks = np.empty((batch, seq + 1), np.int32)
     toks[:, 0] = rng.integers(0, vocab, batch)
-    cum = np.cumsum(trans, axis=1)
     for t in range(seq):
         u = rng.random(batch)
-        toks[:, t + 1] = (cum[toks[:, t]] > u[:, None]).argmax(axis=1)
+        rows = _markov_rows(succ, vocab, toks[:, t])
+        cum = np.cumsum(rows, axis=1, out=rows)
+        toks[:, t + 1] = (cum > u[:, None]).argmax(axis=1)
     return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
             "labels": torch.from_numpy(toks[:, 1:].copy())}
 
@@ -53,10 +75,10 @@ def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int,
 def token_batches(seed: int, batch: int, seq: int, vocab: int
                   ) -> Iterator[dict]:
     """Endless Markov-backbone batches for ``seed`` (a host generator)."""
-    trans = _markov_matrix(vocab, seed)
+    succ = _markov_successors(vocab, seed)
     gen = torch.Generator().manual_seed(seed)
     while True:
-        yield lm_batch(gen, batch, seq, vocab, trans)
+        yield lm_batch(gen, batch, seq, vocab, succ)
 
 
 def uniform_lm_batch(generator: torch.Generator, shape: tuple,

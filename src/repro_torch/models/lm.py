@@ -49,8 +49,8 @@ from . import mamba2 as M2
 from . import moe as MOE
 from . import xlstm as XL
 
-__all__ = ["init_params", "params_from_jax", "loss_train", "prefill",
-           "decode_step", "init_caches", "forward_hidden"]
+__all__ = ["init_params", "abstract_params", "params_from_jax", "loss_train",
+           "prefill", "decode_step", "init_caches", "forward_hidden"]
 
 #: block types that are one attention block + gated MLP; the window adds
 #: one term to the mask and a ring-buffer cursor
@@ -130,6 +130,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         params["segments"].append(_block_init(generator, btype, cfg, dtype,
                                               count))
     return params
+
+
+def fake_init(init, cfg: ArchConfig, dtype, mode=None) -> dict:
+    """``init(cfg, generator, dtype=dtype)`` under a fake-tensor mode
+    (``mode``, a fresh ``FakeTensorMode`` by default): every leaf a
+    ``FakeTensor`` on the CPU with its shape and dtype, nothing allocated.
+    The generator is a CPU one (``torch.Generator(device="meta")`` raises)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with mode if mode is not None else FakeTensorMode():
+        return init(cfg, torch.Generator(device="cpu").manual_seed(0),
+                    dtype=dtype)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, mode=None) -> dict:
+    """The parameter tree's shapes and dtypes with nothing allocated
+    (``repro``'s ``jax.eval_shape`` of ``init_params``): fake tensors made
+    under ``mode`` (see :func:`fake_init`)."""
+    return fake_init(init_params, cfg, dtype, mode)
 
 
 def params_from_jax(params, device="cuda"):

@@ -34,10 +34,10 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_decode import flash_decode
 from ..obs.trace import device_range
 from . import blocks as B
-from .lm import _ce_total, _layer, _unbind
+from .lm import _ce_total, _layer, _unbind, fake_init
 
-__all__ = ["init_params", "encode", "loss_train", "prefill", "decode_step",
-           "init_caches"]
+__all__ = ["init_params", "abstract_params", "encode", "loss_train",
+           "prefill", "decode_step", "init_caches"]
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +68,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
            "ln2": norm(*L), "mlp": B.mlp_init(generator, cfg, dtype, L)}
     return {"embed": embed, "enc": enc, "enc_norm": norm(), "dec": dec,
             "final_norm": norm()}
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, mode=None) -> dict:
+    """The parameter tree's shapes and dtypes with nothing allocated
+    (``repro``'s ``jax.eval_shape`` of ``init_params``): fake tensors made
+    under ``mode`` (see :func:`repro_torch.models.lm.fake_init`)."""
+    return fake_init(init_params, cfg, dtype, mode)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ reference is asserted test-side across the (m, family) grid.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -55,6 +56,23 @@ _T0, _MU, _TOL_GAP = 1.0, 20.0, 1e-8
 #: steps between two host reads of whether any row still runs (on the
 #: card, the fused engine's captured chunk)
 _CHUNK = 32
+#: the process's first CUDA ``cholesky_ex`` loads PyTorch's linear-algebra
+#: library, which two threads doing so at once refuse ("lazy wrapper should
+#: be called at most once"; a parallel sweep's groups in a fresh process):
+#: that first call is made under this lock
+_LINALG_LOCK = threading.Lock()
+_linalg_loaded = False
+
+
+def _load_linalg(device) -> None:
+    global _linalg_loaded
+    if _linalg_loaded or device.type != "cuda":
+        return
+    with _LINALG_LOCK:
+        if not _linalg_loaded:
+            torch.linalg.cholesky_ex(torch.ones(1, 1, dtype=torch.float64,
+                                                device=device))
+            _linalg_loaded = True
 
 
 def _damping_ramp():
@@ -224,6 +242,7 @@ def damped_cholesky(lay: SegLayout, H):
     B, k, _ = H.shape
     lam = lay.lams
     Hl = H[:, None] + lam[None, :, None, None] * lay.eye
+    _load_linalg(H.device)
     L, info = torch.linalg.cholesky_ex(Hl.reshape(-1, k, k))
     L = L.reshape(B, lam.shape[0], k, k)
     # a failed factorization is info != 0; test NaN too, as the reference

@@ -53,7 +53,11 @@ _SLICE_MODULES = (
     "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
     "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.llama3_405b",
     "repro_torch.configs.mistral_large_123b", "repro_torch.models.whisper",
-    "repro_torch.configs.whisper_tiny")
+    "repro_torch.configs.whisper_tiny", "repro_torch.launch",
+    "repro_torch.launch.specs", "repro_torch.launch.train",
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+    "repro_torch.launch.perf", "repro_torch.roofline",
+    "repro_torch.roofline.analysis", "repro_torch.roofline.report")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -100,3 +104,28 @@ def test_planserver_import_loads_no_model_stack():
                           text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_examples_import_without_jax_or_repro():
+    """Every ``examples/torch/*.py`` loads (its module body, not its main)
+    with jax and repro blocked, and pulls neither in."""
+    head = _BLOCKED_IMPORTS.split("import repro_torch\n")[0]
+    code = (f"ROOT = {ROOT!r}\n" + head + textwrap.dedent("""
+        import glob, importlib.util, os
+        paths = sorted(glob.glob(os.path.join(ROOT, "examples", "torch",
+                                              "*.py")))
+        for path in paths:
+            spec = importlib.util.spec_from_file_location(
+                "example_" + os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not leaked, leaked
+        print(" ".join(os.path.basename(p) for p in paths))
+    """))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["optimize_parameters.py", "quickstart.py",
+                                   "serve_decode.py",
+                                   "train_lm_federated.py"]
